@@ -6,7 +6,7 @@ command instead freezes the complete lidar->boxes pipeline into a portable
 ``jax.export`` StableHLO artifact (see ``mv3d_tpu/serving/export.py``):
 
     python -m mv3d_tpu.cli.export -n mytag --out artifacts/mv3d \\
-        --batch-size 8 --platforms tpu,cpu
+        --batch-size 8 --platforms cuda,cpu
 
 The artifact directory is self-contained (program + weights + meta) and is
 loaded on a serving host with ``mv3d_tpu.serving.load_serving``.
@@ -29,7 +29,7 @@ def parse_args(argv=None):
                     help="freeze the uint16/uint8 quantized-transfer "
                          "signature (ops/quantize.py)")
     ap.add_argument("--platforms", default="",
-                    help="comma list of lowering targets, e.g. tpu,cpu "
+                    help="comma list of lowering targets, e.g. cuda,cpu "
                          "(default: current backend)")
     ap.add_argument("--random-init", action="store_true",
                     help="skip checkpoint loading (smoke/bench artifacts)")

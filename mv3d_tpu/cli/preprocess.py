@@ -8,7 +8,7 @@ import argparse
 
 
 def parse_args(argv=None):
-    ap = argparse.ArgumentParser(description="MV3D offline preprocess (TPU)")
+    ap = argparse.ArgumentParser(description="MV3D offline preprocess")
     src = ap.add_mutually_exclusive_group(required=True)
     src.add_argument("--kitti-object", help="KITTI object dataset root")
     src.add_argument("--kitti-raw", help="KITTI raw root (needs --date/--drive)")
@@ -18,7 +18,7 @@ def parse_args(argv=None):
     ap.add_argument("-o", "--out-dir", required=True)
     ap.add_argument("-b", "--batch-size", type=int, default=4)
     ap.add_argument("--cpu", action="store_true",
-                    help="use the numpy oracle instead of the TPU")
+                    help="use the numpy oracle instead of the device")
     ap.add_argument("--no-images", action="store_true")
     from .common import add_config_args
     add_config_args(ap)

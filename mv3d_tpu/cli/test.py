@@ -25,7 +25,7 @@ import numpy as np
 
 
 def parse_args(argv=None):
-    ap = argparse.ArgumentParser(description="MV3D test utilities (TPU)")
+    ap = argparse.ArgumentParser(description="MV3D test utilities")
     ap.add_argument("command", choices=["test_rpn", "test_mv3d",
                                         "test_single_mv3d", "export_kitti",
                                         "test_3dop", "test_rpn_target",
@@ -81,7 +81,6 @@ def main(argv=None):
         import jax
         from ..ops.voxelize import lidar_to_top_batch
         from ..ops.proposal import rpn_proposals
-        from ..train.trainer import _frame0
 
         model = predictor.model
 
@@ -89,10 +88,7 @@ def main(argv=None):
         def rpn_only(variables, points, num_points):
             top = lidar_to_top_batch(points, cfg, num_points)
             out = model.top_rpn.apply(variables["top_view_rpn"], top, False)
-            # model.anchor_mask handles every view layout ("hwc", folded
-            # "s2d2", lane-padded "s2d2p" pair); the generic
-            # non_empty_anchor_mask assumes an unfolded (H, W, C) view
-            inside = model.anchor_mask(_frame0(top))
+            inside = model.anchor_mask(top[0])
             props = rpn_proposals(out["scores"][0], out["deltas"][0],
                                   model.anchors, inside, cfg)
             return props
@@ -209,7 +205,6 @@ def main(argv=None):
         import jax
         from ..ops.voxelize import lidar_to_top_batch
         from ..utils.metrics import dump_debug_images
-        from ..train.trainer import _frame0
 
         model = predictor.model
 
@@ -218,7 +213,7 @@ def main(argv=None):
             from ..ops.proposal import rpn_proposals
             top = lidar_to_top_batch(points, cfg, num_points)
             out = model.top_rpn.apply(variables["top_view_rpn"], top, False)
-            inside = model.anchor_mask(_frame0(top))
+            inside = model.anchor_mask(top[0])
             props = rpn_proposals(out["scores"][0], out["deltas"][0],
                                   model.anchors, inside, cfg)
             return top, props
@@ -230,9 +225,7 @@ def main(argv=None):
                                   jnp.asarray(b["points"]),
                                   jnp.asarray(b["num_points"]))
             mask = np.asarray(props.mask)
-            # pair views have no single drawable plane; keep the heights
-            top_img = np.asarray(_frame0(top)[0] if isinstance(top, tuple)
-                                 else top[0])
+            top_img = np.asarray(top[0])
             dump_debug_images(
                 args.out_dir, i, top_img, rgb=f.rgb,
                 gt_boxes3d=f.gt_boxes3d if len(f.gt_boxes3d) else None,

@@ -14,7 +14,7 @@ import numpy as np
 
 
 def parse_args(argv=None):
-    ap = argparse.ArgumentParser(description="MV3D tracking/prediction (TPU)")
+    ap = argparse.ArgumentParser(description="MV3D tracking/prediction")
     ap.add_argument("-n", "--tag", default="unknown_tag")
     ap.add_argument("-w", "--weights", default="all",
                     help="comma list of subnets to load, or 'all'")

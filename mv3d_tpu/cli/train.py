@@ -12,7 +12,7 @@ import sys
 
 
 def parse_args(argv=None):
-    ap = argparse.ArgumentParser(description="train MV3D (TPU)")
+    ap = argparse.ArgumentParser(description="train MV3D")
     ap.add_argument("-n", "--tag", default="unknown_tag",
                     help="set log tag")
     ap.add_argument("-i", "--max-iter", type=int, default=1000,

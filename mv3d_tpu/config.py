@@ -1,4 +1,4 @@
-"""Configuration system for the TPU-native MV3D framework.
+"""Configuration system for the MV3D framework.
 
 Replaces the reference's two-tier easydict config (``src/config.py`` global ``cfg``
 and ``src/net/configuration.py`` ``CFG.TRAIN/.TEST``) with a single frozen-dataclass
@@ -171,32 +171,29 @@ class ModelConfig:
     # fixed z extent used to lift top boxes to 3d (config.py:43-44)
     box3d_z_min: float = -2.3
     box3d_z_max: float = 1.5
-    compute_dtype: str = "bfloat16"    # MXU-friendly conv/matmul dtype
+    compute_dtype: str = "bfloat16"    # tensor-core conv/matmul dtype
     # "int8": serving-time dynamic post-training quantization of the trunk /
     # ROI-tower / fusion-FC matmuls (ops/quantized.py — per-channel int8
     # weights quantized in-graph from the float checkpoint, per-tensor
-    # dynamic activations, int32 MXU accumulation; v5e+ runs int8 at 2x the
-    # bf16 rate). Stems and prediction heads stay float; training steps
-    # always run the float forward (identical param tree, no checkpoint or
-    # recipe changes).
+    # dynamic activations, int32 accumulation). Stems and prediction heads
+    # stay float; training steps always run the float forward (identical
+    # param tree, no checkpoint or recipe changes).
     quant: str = "none"                # "none" | "int8"
-    # TPU performance options (capability-preserving deviations from the
-    # reference's graph — see models/backbone.py and models/mv3d_net.py):
+    # deviations from the reference's graph that keep its capabilities
+    # (see models/backbone.py and models/mv3d_net.py):
     #  * upsample_features=True restores the reference's trainable bilinear
     #    deconv before ROI pooling (mv3d_net.py:134-136); False (default)
     #    ROI-aligns the stride-8 maps directly — same information, no 31MB
     #    intermediate.
     #  * stem_space_to_depth folds the input's 2x2 (top) / 4x4 (rgb) spatial
-    #    blocks into channels before the first conv so the stem runs with
-    #    MXU-aligned channel counts instead of 27/3-channel 7x7 convs.
+    #    blocks into channels before the first conv, so the stem is a 3x3
+    #    conv over 108 / 48 channels instead of a 7x7 conv over 27 / 3.
     upsample_features: bool = False
     stem_space_to_depth: bool = True
     #  * roi_align_impl="matmul" re-expresses the bilinear ROI-align as
-    #    separable weight-matrix einsums on the MXU instead of XLA gathers
-    #    (ops/roi_align.py roi_align_matmul; measured 0.38 ms/frame of
-    #    gather time on the 6-view align at batch 32, round 5). Identical
-    #    numerics for in-range taps; edge-touching ROIs clamp instead of
-    #    extrapolating.
+    #    separable weight-matrix einsums instead of XLA gathers
+    #    (ops/roi_align.py roi_align_matmul). Identical numerics for
+    #    in-range taps; edge-touching ROIs clamp instead of extrapolating.
     roi_align_impl: str = "gather"              # "gather" | "matmul"
     # backbone ablation surface (reference ResnetBuilder family
     # resnet.py:185-258 and the VGG rgb trunk mv3d_net.py:214-252,
@@ -226,47 +223,14 @@ class PipelineConfig:
     """
     max_points: int = 65536            # padded, host-cropped point budget
     # compute the BEV intensity/density channels on the host (native C++ in
-    # the prefetch loader, overlapped with device compute) while the TPU does
-    # the 25 height channels in-graph. False = everything on device.
+    # the prefetch loader, overlapped with device compute) while the device
+    # does the 25 height channels in-graph. False = everything on device.
     host_aux_channels: bool = True
     # serving transfer diet: the loader ships uint16 fixed-point xyz + uint8
     # reflectance (7 bytes/point vs 16) and the device dequantizes in-graph
     # (ops/quantize.py — documented sub-mm deviation). f32 stays the default
     # bit-parity path.
     stream_quantized: bool = False
-    # use the Pallas sorted-segment kernel (ops/voxelize_pallas.py) for the
-    # height-channel scatter: ~7% faster end-to-end on TPU v5e. Off by
-    # default because the kernel runs in (slow) interpret mode on CPU.
-    use_pallas_heights: bool = False
-    # pure-device mode: compute heights + intensity + density in ONE fused
-    # Pallas sweep over the sorted points (ops/voxelize_pallas.py
-    # scatter_top_fused), replacing three XLA scatters. Off by default for
-    # the same CPU-interpret reason.
-    use_pallas_fused: bool = False
-    # how the fused sweep groups points by output tile: "sort" (full
-    # lax.sort — fastest measured: 101.6 fps e2e) or "bin" (counting
-    # permutation; measured SLOWER, 80-90 fps — the permutation placement
-    # itself hits TPU's per-element scatter/gather serialization)
-    voxel_order: str = "sort"
-    # inner-loop body of the fused sweep: "rmw" (per-point VMEM
-    # read-modify-writes, the round-2 kernel) or "regcache" (loop-carried
-    # vreg accumulators flushed on block transitions). Measured on v5e
-    # round 3: rmw is FASTER e2e (the regcache variants' two branches per
-    # point cost more than the saved VMEM traffic) — see docs/PALLAS_NOTES.md
-    sweep_kernel: str = "rmw"
-    # dtype of the assembled top view on the fused in-graph path:
-    # "float32" (oracle-exact, default) or "bfloat16" (serving: the trunks
-    # convert to bf16 anyway, so the network sees identical values while the
-    # kernel skips the f32->bf16 convert + assembly pass, ~0.85 ms/frame)
-    top_view_dtype: str = "float32"
-    # layout of the fused in-graph top view: "hwc" (standard (H, W, Zn+2),
-    # default), "s2d2" ((H/2, W/2, (Zn+2)*4) folded 2x2 space-to-depth), or
-    # "s2d2p" (lane-padded fold: a (heights (H/2, W2P, 128), aux (H/2, W2P,
-    # 8)) PAIR whose heights plane is the fused kernel's block output
-    # bitcast — zero relayout — consumed by ResnetTiny's split stem; needs
-    # 4*Zn <= 128). Folded layouts require the trunk's stem_space_to_depth
-    # and even grid dims; see ops/voxelize.fold_view_s2d2 / fold_view_s2d2p
-    view_layout: str = "hwc"
     max_gt: int = 32                   # padded ground-truth boxes per frame
     remove_empty_thresh: float = 0.0   # cfg.REMOVE_THRES
     detect_classes: Tuple[str, ...] = ("Car", "Van")   # cfg.DETECT_OBJ
@@ -285,7 +249,7 @@ class TrainConfig:
 
     # -- learning-rate schedule (the reference trains constant Adam 1e-3,
     # mv3d.py:757,849; with real batching a warmup+cosine schedule is the
-    # standard TPU improvement — "constant" preserves reference behavior)
+    # standard improvement — "constant" preserves reference behavior)
     lr_schedule: str = "constant"      # "constant" | "cosine"
     warmup_steps: int = 0              # linear warmup 0 -> lr
     decay_steps: int = 100_000         # cosine horizon (lr_schedule="cosine")
@@ -302,7 +266,7 @@ class TrainConfig:
     # remat: rematerialize the three feature trunks in the backward pass
     # (jax.checkpoint) — trades one extra trunk forward for not storing the
     # full-resolution BEV/RGB/front conv activations, the dominant training
-    # HBM cost; enables ~2x larger train batches per chip.
+    # device-memory cost; enables ~2x larger train batches per device.
     remat: bool = False
     # global-norm gradient clipping applied to the trained subnets before
     # Adam (0 = off, reference behavior).

@@ -5,7 +5,7 @@ One class replaces the reference's four loader generations
 src/utils/batch_loading.py — threads, N processes with per-process
 ``pycuda.autoinit``, pickled Queue IPC). Here the host only reads files and
 pads; voxelization happens *on device inside the train/predict step*
-(mv3d_tpu.ops.voxelize), so a single prefetch thread keeps the TPU fed.
+(mv3d_tpu.ops.voxelize), so a single prefetch thread keeps the device fed.
 
 ``load()`` returns the Trainer batch dict:
   points (B, N, 4), num_points (B,), rgb (B, H, W, 3) f32,

@@ -11,7 +11,7 @@ under ``data/preprocessing/<type>/`` per drive:
     gt_boxes3d/<tag>.npy     (N, 8, 3) lidar gt corners
     gt_labels/<tag>.npy      (N,) labels
 
-The voxelization itself runs batched on the TPU (ops.voxelize); the host only
+The voxelization itself runs batched on the device (ops.voxelize); the host only
 does file I/O — this is where the reference's ``multiprocessing.Pool(3)`` of
 pure-python triple loops (data.py:495-513) gets its >=50x speedup.
 """

@@ -1,25 +1,27 @@
-"""Backbone building blocks (flax.linen), bf16-compute / f32-params.
+"""Backbone building blocks, bf16-compute / f32-params.
 
-TPU-native replacement for the reference's NN primitives and Keras ResNet:
+Replacements for the reference's NN primitives and Keras ResNet:
   * ``conv2d_bn_relu`` / ``linear_bn_relu``  (reference src/net/blocks.py:296-313)
   * bilinear-initialized ``upsample2d`` deconv (blocks.py:254-293)
   * ``ResnetBuilder.resnet_tiny``: conv7x7/2 + maxpool/2 + pre-activation
     bottleneck stages [3, 4] -> stride 8, 512 channels
     (reference src/net/resnet.py:237-259)
 
-Convs run in ``compute_dtype`` (bfloat16 by default) so they tile onto the MXU;
+Convs run in ``compute_dtype`` (bfloat16 by default) on the tensor cores;
 parameters and batch-norm statistics stay float32.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Any, Sequence, Tuple
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..ops.quantized import conv_cls, dense_cls
+from .layers import (Module, Scope, batch_norm, conv, conv_transpose, dense,
+                     max_pool)
 
 Dtype = Any
 
@@ -35,7 +37,7 @@ def bilinear_kernel_init(factor: int):
             (1 - abs(og[1] - center) / factor))
 
     def init(key, shape, dtype=jnp.float32):
-        # flax ConvTranspose kernel: (kh, kw, in_c, out_c)
+        # transposed-conv kernel: (kh, kw, in_c, out_c)
         kh, kw, in_c, out_c = shape
         k = np.zeros(shape, np.float32)
         for c in range(min(in_c, out_c)):
@@ -45,146 +47,116 @@ def bilinear_kernel_init(factor: int):
     return init
 
 
-class ConvBnRelu(nn.Module):
+def _bn_relu(s: Scope, h, train: bool, dtype):
+    h = batch_norm(s, h.astype(jnp.float32), train)
+    return jax.nn.relu(h).astype(dtype)
+
+
+@dataclass(frozen=True)
+class ConvBnRelu(Module):
     features: int
     kernel: Tuple[int, int] = (3, 3)
     strides: Tuple[int, int] = (1, 1)
-    quant: str = "none"       # "int8" -> int8 MXU conv (ops/quantized.py)
+    quant: str = "none"       # "int8" -> int8 conv (ops/quantized.py)
     dtype: Dtype = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
+    def forward(self, s: Scope, x, train: bool = False):
         # int8 is a serving-time forward: training always runs the float
         # path (round() has zero gradient); the param tree is identical
-        # explicit name: the quantized class must land in the same
-        # checkpoint scope as the float nn.Conv's auto-name ("Conv_0")
-        x = conv_cls("none" if train else self.quant)(
-            self.features, self.kernel, self.strides, padding="SAME",
-            use_bias=False, dtype=self.dtype, name="Conv_0")(x)
-        x = nn.BatchNorm(use_running_average=not train, momentum=0.9,
-                         dtype=jnp.float32)(x.astype(jnp.float32))
-        return nn.relu(x).astype(self.dtype)
+        x = conv(s, x, self.features, self.kernel, self.strides,
+                 use_bias=False, dtype=self.dtype,
+                 quant="none" if train else self.quant)
+        return _bn_relu(s, x, train, self.dtype)
 
 
-class DenseBnRelu(nn.Module):
+@dataclass(frozen=True)
+class DenseBnRelu(Module):
     features: int
     quant: str = "none"
     dtype: Dtype = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        x = dense_cls("none" if train else self.quant)(
-            self.features, use_bias=False, dtype=self.dtype,
-            name="Dense_0")(x)
-        x = nn.BatchNorm(use_running_average=not train, momentum=0.9,
-                         dtype=jnp.float32)(x.astype(jnp.float32))
-        return nn.relu(x).astype(self.dtype)
+    def forward(self, s: Scope, x, train: bool = False):
+        x = dense(s, x, self.features, use_bias=False, dtype=self.dtype,
+                  quant="none" if train else self.quant)
+        return _bn_relu(s, x, train, self.dtype)
 
 
-class Upsample2D(nn.Module):
+@dataclass(frozen=True)
+class Upsample2D(Module):
     """Trainable deconv upsampling with bilinear initialization
     (parity: reference ``upsample2d``, blocks.py:254-293)."""
     features: int
     factor: int
     dtype: Dtype = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x):
+    def forward(self, s: Scope, x):
         f = self.factor
         size = 2 * f - f % 2
-        return nn.ConvTranspose(
-            self.features, (size, size), strides=(f, f), padding="SAME",
-            kernel_init=bilinear_kernel_init(f), use_bias=True,
-            dtype=self.dtype)(x)
+        return conv_transpose(s, x, self.features, (size, size), (f, f),
+                              kernel_init=bilinear_kernel_init(f),
+                              dtype=self.dtype)
 
 
-class Bottleneck(nn.Module):
-    """Pre-activation bottleneck block (He et al. 1603.05027), the block family
-    of reference ``resnet.py:135-159``."""
+@dataclass(frozen=True)
+class _Block(Module):
+    """Fields and the bias-free conv shared by the residual blocks."""
     filters: int
     strides: Tuple[int, int] = (1, 1)
     plain_entry: bool = False   # first block right after the stem's bn-relu
     quant: str = "none"
     dtype: Dtype = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        conv = conv_cls("none" if train else self.quant)
+    def _conv(self, s: Scope, h, features, kernel, strides, train, name):
+        return conv(s, h, features, kernel, strides, use_bias=False,
+                    dtype=self.dtype, quant="none" if train else self.quant,
+                    name=name)
 
-        def bn_relu(h):
-            h = nn.BatchNorm(use_running_average=not train, momentum=0.9,
-                             dtype=jnp.float32)(h.astype(jnp.float32))
-            return nn.relu(h).astype(self.dtype)
 
+class Bottleneck(_Block):
+    """Pre-activation bottleneck block (He et al. 1603.05027), the block family
+    of reference ``resnet.py:135-159``."""
+
+    def forward(self, s: Scope, x, train: bool = False):
         out_c = self.filters * 4
-        # explicit names = the float nn.Conv auto-names (checkpoint scope)
-        if self.plain_entry:
-            h = conv(self.filters, (1, 1), self.strides, padding="SAME",
-                     use_bias=False, dtype=self.dtype, name="Conv_0")(x)
-        else:
-            h = bn_relu(x)
-            h = conv(self.filters, (1, 1), self.strides, padding="SAME",
-                     use_bias=False, dtype=self.dtype, name="Conv_0")(h)
-        h = bn_relu(h)
-        h = conv(self.filters, (3, 3), padding="SAME", use_bias=False,
-                 dtype=self.dtype, name="Conv_1")(h)
-        h = bn_relu(h)
-        h = conv(out_c, (1, 1), padding="SAME", use_bias=False,
-                 dtype=self.dtype, name="Conv_2")(h)
+        h = x if self.plain_entry else _bn_relu(s, x, train, self.dtype)
+        h = self._conv(s, h, self.filters, (1, 1), self.strides, train,
+                       "Conv_0")
+        h = _bn_relu(s, h, train, self.dtype)
+        h = self._conv(s, h, self.filters, (3, 3), (1, 1), train, "Conv_1")
+        h = _bn_relu(s, h, train, self.dtype)
+        h = self._conv(s, h, out_c, (1, 1), (1, 1), train, "Conv_2")
 
         shortcut = x
         if x.shape[-1] != out_c or self.strides != (1, 1):
-            shortcut = conv(out_c, (1, 1), self.strides, padding="SAME",
-                            use_bias=False, dtype=self.dtype,
-                            name="Conv_3")(x)
+            shortcut = self._conv(s, x, out_c, (1, 1), self.strides, train,
+                                  "Conv_3")
         return h + shortcut
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(_Block):
     """Pre-activation basic block (two 3x3 convs) — the reference's
     ``basic_block`` family (resnet.py:111-132), used by its resnet_18/34
     builders. Output channels = filters (no 4x expansion)."""
-    filters: int
-    strides: Tuple[int, int] = (1, 1)
-    plain_entry: bool = False
-    quant: str = "none"
-    dtype: Dtype = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        conv = conv_cls("none" if train else self.quant)
-
-        def bn_relu(h):
-            h = nn.BatchNorm(use_running_average=not train, momentum=0.9,
-                             dtype=jnp.float32)(h.astype(jnp.float32))
-            return nn.relu(h).astype(self.dtype)
-
-        if self.plain_entry:
-            h = conv(self.filters, (3, 3), self.strides, padding="SAME",
-                     use_bias=False, dtype=self.dtype, name="Conv_0")(x)
-        else:
-            h = bn_relu(x)
-            h = conv(self.filters, (3, 3), self.strides, padding="SAME",
-                     use_bias=False, dtype=self.dtype, name="Conv_0")(h)
-        h = bn_relu(h)
-        h = conv(self.filters, (3, 3), padding="SAME", use_bias=False,
-                 dtype=self.dtype, name="Conv_1")(h)
+    def forward(self, s: Scope, x, train: bool = False):
+        h = x if self.plain_entry else _bn_relu(s, x, train, self.dtype)
+        h = self._conv(s, h, self.filters, (3, 3), self.strides, train,
+                       "Conv_0")
+        h = _bn_relu(s, h, train, self.dtype)
+        h = self._conv(s, h, self.filters, (3, 3), (1, 1), train, "Conv_1")
 
         shortcut = x
         if x.shape[-1] != self.filters or self.strides != (1, 1):
-            shortcut = conv(self.filters, (1, 1), self.strides,
-                            padding="SAME", use_bias=False,
-                            dtype=self.dtype, name="Conv_2")(x)
+            shortcut = self._conv(s, x, self.filters, (1, 1), self.strides,
+                                  train, "Conv_2")
         return h + shortcut
 
 
 def space_to_depth(x: jnp.ndarray, factor: int) -> jnp.ndarray:
-    """(B, H, W, C) -> (B, H/f, W/f, C*f*f): fold spatial blocks into lanes.
-
-    Classic TPU trick for early conv layers: the stem then runs with
-    MXU-aligned input channel counts (27 -> 108, 3 -> 48) instead of wasting
-    127/128 lanes, at identical information content. Trailing rows/cols are
-    zero-padded to a multiple of the factor.
+    """(B, H, W, C) -> (B, H/f, W/f, C*f*f): fold spatial blocks into
+    channels, so the stem conv sees 108 (top) / 48 (rgb) input channels
+    instead of 27 / 3 at identical information content. Trailing rows/cols
+    are zero-padded to a multiple of the factor.
     """
     b, h, w, c = x.shape
     ph = (-h) % factor
@@ -197,7 +169,8 @@ def space_to_depth(x: jnp.ndarray, factor: int) -> jnp.ndarray:
         b, h // factor, w // factor, factor * factor * c)
 
 
-class ResnetTiny(nn.Module):
+@dataclass(frozen=True)
+class ResnetTiny(Module):
     """Stride-8 tiny bottleneck ResNet: stem/2, pool/2, stages [3, 4] (/2).
 
     Parity: reference ``ResnetBuilder.resnet_tiny`` (resnet.py:237-259) —
@@ -205,8 +178,7 @@ class ResnetTiny(nn.Module):
 
     ``s2d_factor`` > 0 replaces the 7x7/2 conv stem with space-to-depth + a
     3x3/1 conv at the same output stride (factor 2: s2d/2+conv+pool/2;
-    factor 4: s2d/4+conv, no pool) — an MXU-utilization optimization with the
-    same stride-8 output contract.
+    factor 4: s2d/4+conv, no pool) — same stride-8 output contract.
 
     ``repetitions``/``block`` expose the reference's ResnetBuilder ablation
     family (resnet.py:185-258): e.g. (2, 2, 2, 2) + "basic" = resnet_18's
@@ -217,59 +189,26 @@ class ResnetTiny(nn.Module):
     s2d_factor: int = 0
     block: str = "bottleneck"          # "bottleneck" | "basic"
     dtype: Dtype = jnp.bfloat16
-    # input is ALREADY channel-folded (the voxelizer's "s2d2" view layout):
-    # skip the in-model space_to_depth. Only meaningful with s2d_factor=2.
-    input_prefolded: bool = False
-    # lane-padded "s2d2p" layout: input is a (heights (B,H2,W2P,128),
-    # aux (B,H2,W2P,8)) pair; the stem is conv(heights) + conv(aux) summed —
-    # function-equivalent to one conv over the concatenated channels
-    # (convolution is linear over input-channel groups; the zero lanes
-    # contribute nothing) — then cropped to crop_w true columns BEFORE batch
-    # norm, so statistics and every downstream activation match the
-    # unpadded "s2d2" network exactly (the pad columns are explicit zeros,
-    # identical to SAME-padding at the true boundary).
-    split_stem: bool = False
-    crop_w: int = 0
-    # "int8": residual-block convs run int8 on the MXU (ops/quantized.py).
-    # The stem stays float — first-layer quantization is the standard PTQ
-    # accuracy cliff, and the stem sees raw voxel statistics.
+    # "int8": residual-block convs run int8 (ops/quantized.py). The stem
+    # stays float — first-layer quantization is the standard PTQ accuracy
+    # cliff, and the stem sees raw voxel statistics.
     quant: str = "none"
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        if self.split_stem:
-            heights, aux = x
-            h = nn.Conv(self.base_filters, (3, 3), (1, 1), padding="SAME",
-                        use_bias=False, dtype=self.dtype,
-                        name="stem_h")(heights.astype(self.dtype))
-            h = h + nn.Conv(self.base_filters, (3, 3), (1, 1), padding="SAME",
-                            use_bias=False, dtype=self.dtype,
-                            name="stem_aux")(aux.astype(self.dtype))
-            if self.crop_w:
-                h = h[:, :, :self.crop_w, :]
-            h = nn.BatchNorm(use_running_average=not train, momentum=0.9,
-                             dtype=jnp.float32,
-                             name="stem_bn")(h.astype(jnp.float32))
-            x = nn.relu(h).astype(self.dtype)
-            x = nn.max_pool(x, (3, 3), strides=(2, 2), padding="SAME")
+    def forward(self, s: Scope, x, train: bool = False):
+        x = x.astype(self.dtype)
+        if self.s2d_factor == 0:
+            x = ConvBnRelu(self.base_filters, (7, 7), (2, 2),
+                           dtype=self.dtype)(s, x, train)
+            x = max_pool(x, (3, 3), (2, 2))
+        elif self.s2d_factor == 2:
+            x = ConvBnRelu(self.base_filters, (3, 3), (1, 1),
+                           dtype=self.dtype)(s, space_to_depth(x, 2), train)
+            x = max_pool(x, (3, 3), (2, 2))
+        elif self.s2d_factor == 4:
+            x = ConvBnRelu(self.base_filters, (3, 3), (1, 1),
+                           dtype=self.dtype)(s, space_to_depth(x, 4), train)
         else:
-            x = x.astype(self.dtype)
-            if self.s2d_factor == 0:
-                x = ConvBnRelu(self.base_filters, (7, 7), (2, 2),
-                               dtype=self.dtype)(x, train)
-                x = nn.max_pool(x, (3, 3), strides=(2, 2), padding="SAME")
-            elif self.s2d_factor == 2:
-                if not self.input_prefolded:
-                    x = space_to_depth(x, 2)
-                x = ConvBnRelu(self.base_filters, (3, 3), (1, 1),
-                               dtype=self.dtype)(x, train)
-                x = nn.max_pool(x, (3, 3), strides=(2, 2), padding="SAME")
-            elif self.s2d_factor == 4:
-                x = space_to_depth(x, 4)
-                x = ConvBnRelu(self.base_filters, (3, 3), (1, 1),
-                               dtype=self.dtype)(x, train)
-            else:
-                raise ValueError(f"unsupported s2d_factor {self.s2d_factor}")
+            raise ValueError(f"unsupported s2d_factor {self.s2d_factor}")
 
         block_cls = {"bottleneck": Bottleneck, "basic": BasicBlock}[self.block]
         filters = self.base_filters
@@ -278,6 +217,6 @@ class ResnetTiny(nn.Module):
                 strides = (2, 2) if (j == 0 and i != 0) else (1, 1)
                 x = block_cls(filters, strides,
                               plain_entry=(i == 0 and j == 0),
-                              quant=self.quant, dtype=self.dtype)(x, train)
+                              quant=self.quant, dtype=self.dtype)(s, x, train)
             filters *= 2
         return x

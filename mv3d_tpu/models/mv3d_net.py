@@ -102,22 +102,12 @@ class MV3DNet:
         m = cfg.model
         s2d_top = 2 if m.stem_space_to_depth else 0
         s2d_rgb = 4 if m.stem_space_to_depth else 0
-        layout = cfg.pipeline.view_layout
-        folded = layout in ("s2d2", "s2d2p")
-        assert not folded or (s2d_top == 2
-                              and cfg.top.xn % 2 == 0 and cfg.top.yn % 2 == 0), \
-            "folded view layouts require stem_space_to_depth and even grid dims"
-        padded = layout == "s2d2p"
-        assert not padded or 4 * cfg.top.zn <= 128, \
-            "view_layout=s2d2p requires 4*zn <= 128 heights lanes"
         reps = tuple(m.backbone_repetitions)
         assert m.rpn_stride == 4 * 2 ** (len(reps) - 1), \
             ("backbone_repetitions implies stride 4*2^(len-1); set "
              "model.rpn_stride to match", reps, m.rpn_stride)
         self.top_rpn = TopRPN(num_bases=len(m.bases), dtype=dtype,
                               upsample=m.upsample_features, s2d_factor=s2d_top,
-                              input_prefolded=folded, split_stem=padded,
-                              crop_w=cfg.top.yn // 2 if padded else 0,
                               block=m.backbone_block, repetitions=reps,
                               quant=m.quant)
         self.rgb_net = RgbFeatureNet(dtype=dtype, upsample=m.upsample_features,
@@ -150,16 +140,7 @@ class MV3DNet:
         """Initialize all subnet variables with correctly shaped dummies."""
         cfg = self.cfg
         k1, k2, k3, k4 = jax.random.split(key, 4)
-        xn, yn, tc = cfg.top_shape
-        if cfg.pipeline.view_layout == "s2d2":
-            top = jnp.zeros((1, xn // 2, yn // 2, 4 * tc), jnp.float32)
-        elif cfg.pipeline.view_layout == "s2d2p":
-            from ..ops.voxelize import folded_pad_width
-            w2p = folded_pad_width(yn)
-            top = (jnp.zeros((1, xn // 2, w2p, 128), jnp.float32),
-                   jnp.zeros((1, xn // 2, w2p, 8), jnp.float32))
-        else:
-            top = jnp.zeros((1, xn, yn, tc), jnp.float32)
+        top = jnp.zeros((1, *cfg.top_shape), jnp.float32)
         rgb = jnp.zeros((1, *cfg.rgb_shape), jnp.float32)
         front = jnp.zeros((1, *cfg.front_shape), jnp.float32)
 
@@ -182,40 +163,12 @@ class MV3DNet:
         """In-graph empty-anchor filter for one frame (separable
         reduce_window formulation — the anchors are a static base+stride
         grid). Pass ``occ`` (the voxelizer's ``return_occ`` output) to avoid
-        re-deriving the channel sum from the assembled view — without it XLA
-        materializes a second f32 copy of the height volume (~1.8 ms/frame,
-        docs/PALLAS_NOTES.md). Accepts the folded "s2d2" view too (occ is
-        then unfolded from the per-supercell channel groups)."""
+        re-deriving the channel sum from the assembled view, a reduction
+        over the whole height volume."""
         cfg = self.cfg
-        xn, yn, tc = cfg.top_shape
-        zn = tc - 2
-        if occ is None and isinstance(top_view_frame, (tuple, list)):
-            # lane-padded "s2d2p" pair: per-sub-cell lane-group sums of the
-            # heights plane + the aux plane — FOLDED (h2, w2p, 4), consumed
-            # directly by the folded window filter (no unfold pass)
-            heights, aux = top_view_frame
-            hv = heights.astype(jnp.float32)
-            av = aux.astype(jnp.float32)
-            h4 = jnp.stack([jnp.sum(hv[..., s * zn:(s + 1) * zn], axis=-1)
-                            for s in range(4)], axis=-1)
-            occ = h4 + av[..., :4] + av[..., 4:]
-        elif occ is None and top_view_frame.shape[:2] == (xn // 2, yn // 2):
-            # folded view: channels are [(dy,dx,s) x 4*zn, int x4, den x4];
-            # per-(dy,dx) channel sums ARE the folded occupancy
-            v = top_view_frame.astype(jnp.float32)
-            h4 = jnp.sum(v[..., :4 * zn].reshape(xn // 2, yn // 2, 4, zn),
-                         axis=-1)
-            occ = h4 + v[..., 4 * zn:4 * zn + 4] + v[..., 4 * zn + 4:]
-        # rank-3 occ = folded (h2, w2p, 4); the structured filter dispatches
-        # to the parity-decomposed window sums. The first argument only
-        # carries the full-res (xn, yn) dims in that case.
         return non_empty_anchor_mask_structured(
-            top_view_frame if occ is None else
-            (occ[..., None] if occ.ndim == 2
-             else jax.ShapeDtypeStruct((xn, yn), jnp.float32)),
-            self._bases_np, cfg.model.rpn_stride,
-            self._feat_shape, cfg.pipeline.remove_empty_thresh,
-            occ=occ)
+            top_view_frame, self._bases_np, cfg.model.rpn_stride,
+            self._feat_shape, cfg.pipeline.remove_empty_thresh, occ=occ)
 
     # -- feature extraction ---------------------------------------------------
 
@@ -331,11 +284,6 @@ class MV3DNet:
             probs, deltas, rois3d, props.mask)
         return dets, props
 
-    # NOTE: a software-pipelined serving mode (voxelize frame i+1 while the
-    # net runs frame i in one program) was built and benchmarked in round 1;
-    # it measured *slower* than the plain path (13.0 vs 11.6 ms/frame —
-    # scatter and MXU do not overlap on v5e) and was removed.
-
     # -- training -------------------------------------------------------------
 
     def forward_train(self, variables, batch: Dict[str, jnp.ndarray],
@@ -352,7 +300,7 @@ class MV3DNet:
         top, rgb, front = batch["top"], batch["rgb"], batch["front"]
         gt3d, gt_labels = batch["gt_boxes3d"], batch["gt_labels"]
         gt_mask = batch["gt_mask"]
-        b = (top[0] if isinstance(top, (tuple, list)) else top).shape[0]
+        b = top.shape[0]
 
         outs, updates = self.extract_features(variables, top, rgb, front,
                                               train=train)

@@ -1,4 +1,4 @@
-"""The four MV3D subnets as flax modules, plus the assembled model wrapper.
+"""The four MV3D subnets, plus the assembled model wrapper.
 
 Subnet structure and naming mirror the reference graph scopes so staged
 training and per-subnet checkpointing carry over directly
@@ -15,20 +15,21 @@ training and per-subnet checkpointing carry over directly
                              handcraft/learnable late fusion
                              (``fusion_net`` + predict heads, :479-958)
 
-All convs/matmuls run in bfloat16 (MXU); logits/probabilities are returned in
-float32.
+All convs/matmuls run in bfloat16 on the tensor cores; logits/probabilities
+are returned in float32.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
 from ..config import Config
-from .backbone import (ConvBnRelu, DenseBnRelu, ResnetTiny, Upsample2D)
+from .backbone import ConvBnRelu, DenseBnRelu, ResnetTiny, Upsample2D
+from .layers import Module, Scope, avg_pool, conv, dense, max_pool
 
 Dtype = Any
 
@@ -39,7 +40,8 @@ FUSION = "fusion"
 SUBNET_NAMES = (TOP_VIEW_RPN, IMAGE_FEATURE, FRONT_FEATURE, FUSION)
 
 
-class TopRPN(nn.Module):
+@dataclass(frozen=True)
+class TopRPN(Module):
     """BEV feature trunk + RPN score/delta heads + RCNN feature.
 
     With ``upsample`` the RCNN feature is the reference's x4 bilinear-init
@@ -50,41 +52,31 @@ class TopRPN(nn.Module):
     num_bases: int
     upsample: bool = False
     s2d_factor: int = 0
-    input_prefolded: bool = False
-    # lane-padded "s2d2p" input: top_view is a (heights, aux) pair consumed
-    # by ResnetTiny's split stem, cropped to crop_w true folded columns
-    split_stem: bool = False
-    crop_w: int = 0
     block: str = "bottleneck"
     repetitions: Tuple[int, ...] = (3, 4)
     quant: str = "none"
     dtype: Dtype = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, top_view, train: bool = False):
+    def forward(self, s: Scope, top_view, train: bool = False):
         x = ResnetTiny(s2d_factor=self.s2d_factor, dtype=self.dtype,
-                       input_prefolded=self.input_prefolded,
-                       split_stem=self.split_stem, crop_w=self.crop_w,
                        block=self.block, repetitions=self.repetitions,
-                       quant=self.quant,
-                       name="trunk")(top_view, train)
-        x = ConvBnRelu(128, (1, 1), quant=self.quant, dtype=self.dtype,
-                       name="reduce")(x, train)
+                       quant=self.quant)(s, top_view, train, name="trunk")
+        x = ConvBnRelu(128, (1, 1), quant=self.quant,
+                       dtype=self.dtype)(s, x, train, name="reduce")
 
-        up = ConvBnRelu(128, (3, 3), quant=self.quant, dtype=self.dtype,
-                        name="rpn_conv")(x, train)
-        scores = nn.Conv(2 * self.num_bases, (1, 1), padding="SAME",
-                         dtype=self.dtype, name="rpn_score")(up)
-        deltas = nn.Conv(4 * self.num_bases, (1, 1), padding="SAME",
-                         dtype=self.dtype, name="rpn_delta")(up)
+        up = ConvBnRelu(128, (3, 3), quant=self.quant,
+                        dtype=self.dtype)(s, x, train, name="rpn_conv")
+        scores = conv(s, up, 2 * self.num_bases, (1, 1), dtype=self.dtype,
+                      name="rpn_score")
+        deltas = conv(s, up, 4 * self.num_bases, (1, 1), dtype=self.dtype,
+                      name="rpn_delta")
 
         if self.upsample:
-            feature = Upsample2D(128, factor=4, dtype=self.dtype,
-                                 name="rcnn_upsample")(x)
+            feature = Upsample2D(128, factor=4, dtype=self.dtype)(
+                s, x, name="rcnn_upsample")
         else:
             feature = x
-        b = (top_view[0] if isinstance(top_view, (tuple, list))
-             else top_view).shape[0]
+        b = top_view.shape[0]
         return {
             "features": feature,                               # (B, H/2, W/2, 128)
             "scores": scores.reshape(b, -1, 2).astype(jnp.float32),   # (B, A, 2)
@@ -93,29 +85,30 @@ class TopRPN(nn.Module):
         }
 
 
-class VggTrunk(nn.Module):
+@dataclass(frozen=True)
+class VggTrunk(Module):
     """VGG-style stride-8 trunk — the reference's plain ``rgb_feature_net``
     (mv3d_net.py:214-252, selected by cfg.RGB_BASENET='VGG'): conv blocks
     (32,32)/pool, (64,64)/pool, (128,128,128)/pool, (128,128,128)."""
     quant: str = "none"
     dtype: Dtype = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
+    def forward(self, s: Scope, x, train: bool = False):
         x = x.astype(self.dtype)
         for bi, (reps, ch, pool) in enumerate(
                 [(2, 32, True), (2, 64, True), (3, 128, True), (3, 128, False)]):
             for j in range(reps):
                 # first conv sees raw pixels: stays float (PTQ first-layer rule)
                 q = "none" if (bi == 0 and j == 0) else self.quant
-                x = ConvBnRelu(ch, (3, 3), quant=q, dtype=self.dtype,
-                               name=f"block{bi+1}_conv{j+1}")(x, train)
+                x = ConvBnRelu(ch, (3, 3), quant=q, dtype=self.dtype)(
+                    s, x, train, name=f"block{bi+1}_conv{j+1}")
             if pool:
-                x = nn.max_pool(x, (2, 2), strides=(2, 2), padding="SAME")
+                x = max_pool(x, (2, 2), (2, 2))
         return x
 
 
-class RgbFeatureNet(nn.Module):
+@dataclass(frozen=True)
+class RgbFeatureNet(Module):
     """RGB trunk: resnet_tiny (default) or VGG -> 1x1/128 (-> optional x2
     upsample). ``basenet`` mirrors cfg.RGB_BASENET (reference config.py:63)."""
     upsample: bool = False
@@ -126,23 +119,24 @@ class RgbFeatureNet(nn.Module):
     quant: str = "none"
     dtype: Dtype = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, rgb: jnp.ndarray, train: bool = False):
+    def forward(self, s: Scope, rgb: jnp.ndarray, train: bool = False):
         if self.basenet == "vgg":
-            x = VggTrunk(quant=self.quant, dtype=self.dtype,
-                         name="trunk")(rgb, train)
+            trunk = VggTrunk(quant=self.quant, dtype=self.dtype)
         else:
-            x = ResnetTiny(s2d_factor=self.s2d_factor, dtype=self.dtype,
-                           block=self.block, repetitions=self.repetitions,
-                           quant=self.quant, name="trunk")(rgb, train)
-        x = ConvBnRelu(128, (1, 1), quant=self.quant, dtype=self.dtype,
-                       name="reduce")(x, train)
+            trunk = ResnetTiny(s2d_factor=self.s2d_factor, dtype=self.dtype,
+                               block=self.block, repetitions=self.repetitions,
+                               quant=self.quant)
+        x = trunk(s, rgb, train, name="trunk")
+        x = ConvBnRelu(128, (1, 1), quant=self.quant,
+                       dtype=self.dtype)(s, x, train, name="reduce")
         if self.upsample:
-            x = Upsample2D(128, factor=2, dtype=self.dtype, name="upsample")(x)
+            x = Upsample2D(128, factor=2, dtype=self.dtype)(
+                s, x, name="upsample")
         return x
 
 
-class FrontFeatureNet(nn.Module):
+@dataclass(frozen=True)
+class FrontFeatureNet(Module):
     """Front trunk: resnet_tiny -> 1x1/128 (-> optional x4 upsample)."""
     upsample: bool = False
     s2d_factor: int = 0
@@ -151,36 +145,37 @@ class FrontFeatureNet(nn.Module):
     quant: str = "none"
     dtype: Dtype = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, front: jnp.ndarray, train: bool = False):
+    def forward(self, s: Scope, front: jnp.ndarray, train: bool = False):
         x = ResnetTiny(s2d_factor=self.s2d_factor, dtype=self.dtype,
                        block=self.block, repetitions=self.repetitions,
-                       quant=self.quant, name="trunk")(front, train)
-        x = ConvBnRelu(128, (1, 1), quant=self.quant, dtype=self.dtype,
-                       name="reduce")(x, train)
+                       quant=self.quant)(s, front, train, name="trunk")
+        x = ConvBnRelu(128, (1, 1), quant=self.quant,
+                       dtype=self.dtype)(s, x, train, name="reduce")
         if self.upsample:
-            x = Upsample2D(128, factor=4, dtype=self.dtype, name="upsample")(x)
+            x = Upsample2D(128, factor=4, dtype=self.dtype)(
+                s, x, name="upsample")
         return x
 
 
-class _RoiTower(nn.Module):
+@dataclass(frozen=True)
+class _RoiTower(Module):
     """Per-view ROI feature tower: 3 residual conv blocks with avg-pool /2
     (reference fusion_net blocks, mv3d_net.py:499-530): 6x6 -> 3 -> 2 -> 1."""
     quant: str = "none"
     dtype: Dtype = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
+    def forward(self, s: Scope, x, train: bool = False):
         for i, ch in enumerate((128, 256, 512)):
-            h = ConvBnRelu(ch, (3, 3), quant=self.quant, dtype=self.dtype,
-                           name=f"block{i+1}_conv1")(x, train)
-            h = ConvBnRelu(ch, (3, 3), quant=self.quant, dtype=self.dtype,
-                           name=f"block{i+1}_conv2")(h, train) + h
-            x = nn.avg_pool(h, (2, 2), strides=(2, 2), padding="SAME")
+            h = ConvBnRelu(ch, (3, 3), quant=self.quant, dtype=self.dtype)(
+                s, x, train, name=f"block{i+1}_conv1")
+            h = ConvBnRelu(ch, (3, 3), quant=self.quant, dtype=self.dtype)(
+                s, h, train, name=f"block{i+1}_conv2") + h
+            x = avg_pool(h, (2, 2), (2, 2))
         return x.reshape(x.shape[0], -1)    # (R, 512)
 
 
-class _PredictHead(nn.Module):
+@dataclass(frozen=True)
+class _PredictHead(Module):
     """Score + corner-delta head over a fused 512-d roi feature.
 
     The delta path is a proper 256-256-out MLP chain. NOTE the reference's
@@ -193,22 +188,22 @@ class _PredictHead(nn.Module):
     quant: str = "none"
     dtype: Dtype = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, feat, train: bool = False):
+    def forward(self, s: Scope, feat, train: bool = False):
         # score / box_3 output layers stay float (PTQ last-layer rule)
-        scores = nn.Dense(self.num_class, dtype=self.dtype,
-                          name="score")(feat).astype(jnp.float32)
-        h = DenseBnRelu(256, quant=self.quant, dtype=self.dtype,
-                        name="box_1")(feat, train)
-        h = DenseBnRelu(256, quant=self.quant, dtype=self.dtype,
-                        name="box_2")(h, train)
-        deltas = nn.Dense(self.num_class * self.out_dim, dtype=self.dtype,
-                          name="box_3")(h).astype(jnp.float32)
+        scores = dense(s, feat, self.num_class, dtype=self.dtype,
+                       name="score").astype(jnp.float32)
+        h = DenseBnRelu(256, quant=self.quant, dtype=self.dtype)(
+            s, feat, train, name="box_1")
+        h = DenseBnRelu(256, quant=self.quant, dtype=self.dtype)(
+            s, h, train, name="box_2")
+        deltas = dense(s, h, self.num_class * self.out_dim, dtype=self.dtype,
+                       name="box_3").astype(jnp.float32)
         deltas = deltas.reshape(-1, self.num_class, 8, 3)
         return scores, deltas
 
 
-class FusionHead(nn.Module):
+@dataclass(frozen=True)
+class FusionHead(Module):
     """Multi-view ROI fusion with twin with/without-RGB heads.
 
     Input: dict of per-view pooled roi features (R, ph, pw, C) under keys
@@ -220,57 +215,53 @@ class FusionHead(nn.Module):
     cfg: Config
     dtype: Dtype = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, roi_feats: Dict[str, jnp.ndarray], train: bool = False):
+    def forward(self, s: Scope, roi_feats: Dict[str, jnp.ndarray],
+                train: bool = False):
         m = self.cfg.model
         quant = m.quant
+        dt = self.dtype
         feats = {}
         for name in ("top", "front", "rgb"):
             if name in roi_feats:
-                f = _RoiTower(quant=quant, dtype=self.dtype,
-                              name=f"{name}_tower")(
-                    roi_feats[name].astype(self.dtype), train)
+                f = _RoiTower(quant=quant, dtype=dt)(
+                    s, roi_feats[name].astype(dt), train,
+                    name=f"{name}_tower")
                 ctx_key = name + "_ctx"
                 if ctx_key in roi_feats:
                     # siamese context branch: twin tower over the enlarged-roi
                     # features, concatenated per view (mv3d_net.py:535-599)
-                    fc = _RoiTower(quant=quant, dtype=self.dtype,
-                                   name=f"{name}_ctx_tower")(
-                        roi_feats[ctx_key].astype(self.dtype), train)
+                    fc = _RoiTower(quant=quant, dtype=dt)(
+                        s, roi_feats[ctx_key].astype(dt), train,
+                        name=f"{name}_ctx_tower")
                     f = jnp.concatenate([f, fc], axis=1)
                 feats[name] = f
 
         non_rgb = [feats[k] for k in ("top", "front") if k in feats]
         all_views = non_rgb + ([feats["rgb"]] if "rgb" in feats else [])
 
-        wo = jnp.concatenate(non_rgb, axis=1)
-        wo = DenseBnRelu(512, quant=quant, dtype=self.dtype,
-                         name="fc_wo_rgb_1")(wo, train)
-        wo = DenseBnRelu(512, quant=quant, dtype=self.dtype,
-                         name="fc_wo_rgb_2")(wo, train)
+        def fc(h, name):
+            return DenseBnRelu(512, quant=quant, dtype=dt)(s, h, train,
+                                                           name=name)
 
-        w = jnp.concatenate(all_views, axis=1)
-        w = DenseBnRelu(512, quant=quant, dtype=self.dtype,
-                        name="fc_all_1")(w, train)
-        w = DenseBnRelu(512, quant=quant, dtype=self.dtype,
-                        name="fc_all_2")(w, train)
+        wo = fc(fc(jnp.concatenate(non_rgb, axis=1), "fc_wo_rgb_1"),
+                "fc_wo_rgb_2")
+        w = fc(fc(jnp.concatenate(all_views, axis=1), "fc_all_1"),
+               "fc_all_2")
         if m.use_siamese_fusion:
             # extra mixing layer for the siamese features (mv3d_net.py:607-618)
-            wo = DenseBnRelu(512, quant=quant, dtype=self.dtype,
-                             name="fc_wo_rgb_3")(wo, train)
-            w = DenseBnRelu(512, quant=quant, dtype=self.dtype,
-                            name="fc_all_3")(w, train)
+            wo = fc(wo, "fc_wo_rgb_3")
+            w = fc(w, "fc_all_3")
 
         scores_w, deltas_w = _PredictHead(
-            m.num_class, quant=quant, dtype=self.dtype,
-            name="head_with_rgb")(w, train)
+            m.num_class, quant=quant, dtype=dt)(s, w, train,
+                                                name="head_with_rgb")
         probs_w = jax.nn.softmax(scores_w, axis=-1)
 
         need_twin = m.use_handcraft_fusion or m.use_learnable_fusion
         if need_twin:
             scores_wo, deltas_wo = _PredictHead(
-                m.num_class, quant=quant, dtype=self.dtype,
-                name="head_without_rgb")(wo, train)
+                m.num_class, quant=quant, dtype=dt)(s, wo, train,
+                                                    name="head_without_rgb")
             probs_wo = jax.nn.softmax(scores_wo, axis=-1)
         else:
             # reference default: single head, twin outputs aliased
@@ -297,13 +288,15 @@ class FusionHead(nn.Module):
         elif m.use_learnable_fusion:
             nc = m.num_class
             dim = nc * 24
-            scores = nn.Dense(nc, dtype=self.dtype, name="fuse_scores")(
-                jnp.concatenate([scores_w, scores_wo], axis=1)).astype(jnp.float32)
+            scores = dense(s, jnp.concatenate([scores_w, scores_wo], axis=1),
+                           nc, dtype=dt,
+                           name="fuse_scores").astype(jnp.float32)
             probs = jax.nn.softmax(scores, axis=-1)
             d = jnp.concatenate([deltas_w.reshape(-1, dim),
                                  deltas_wo.reshape(-1, dim)], axis=1)
-            deltas = DenseBnRelu(dim, dtype=self.dtype, name="fuse_deltas")(
-                d, train).astype(jnp.float32).reshape(-1, nc, 8, 3)
+            deltas = DenseBnRelu(dim, dtype=dt)(
+                s, d, train, name="fuse_deltas").astype(
+                    jnp.float32).reshape(-1, nc, 8, 3)
         else:
             scores, probs, deltas = scores_w, probs_w, deltas_w
 

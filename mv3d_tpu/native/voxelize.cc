@@ -3,8 +3,8 @@
 // C++ counterpart of the reference's native preprocessing stack
 // (src/lidar_data_preprocess/Python_to_C_Interface/ver3/LidarTopPreprocess.c
 // and the PyCUDA front/top kernels, front_top_kernel.cu) — used for:
-//   * fast point-cloud crop+pad in the data loader (keeps the TPU fed),
-//   * a bit-parity CPU voxelizer for golden tests and TPU-free environments.
+//   * fast point-cloud crop+pad in the data loader (keeps the device fed),
+//   * a bit-parity CPU voxelizer for golden tests and accelerator-free environments.
 //
 // Semantics are identical to mv3d_tpu/ops/voxelize_ref.py (which itself
 // replicates reference src/data.py:296-367, 56-111): strict-inequality crops,
@@ -111,7 +111,7 @@ void mv3d_lidar_to_top(const float* pts, int n, float* top,
 
 // Aux BEV channels only: intensity of the first-max-height point + log-count
 // density, written into aux[xn * yn * 2] ([row][col][{intensity, density}],
-// zero-initialized). Single pass; used by the prefetch loader so the TPU only
+// zero-initialized). Single pass; used by the prefetch loader so the device only
 // computes the height channels (the expensive irregular reductions for these
 // two channels are cheaper on the host and overlap with device compute).
 void mv3d_lidar_to_top_aux(const float* pts, int n, float* aux,

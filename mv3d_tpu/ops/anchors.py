@@ -164,23 +164,19 @@ def non_empty_anchor_mask_structured(top_view: jnp.ndarray, bases: np.ndarray,
     Same semantics as :func:`non_empty_anchor_mask`, exploiting that anchors
     are ``base + stride * grid`` (ops/anchors.make_anchors).
 
-    ``mode="window"`` (default — fastest measured): the clamped rect sum
+    ``mode="window"`` (default): the clamped rect sum
     equals a ZERO-PADDED sliding-window sum once the last row/col of the
     occupancy map are zeroed (the reference's corner clamp into [0, dim-1]
     with an exclusive upper bound excludes row h-1 / col w-1 exactly when
     the window sticks out — which is exactly what the zeroed border + plain
     interval intersection reproduces). Two separable ``lax.reduce_window``
     sum passes per base (window (dy,1) stride (s,1), then (1,dx) stride
-    (1,s)) with negative padding aligning output 0 to the base corner —
-    the orthodox TPU pooling pattern, no integral image, no strided slices,
-    no large constants. Round-2 measurements (e2e, batch 8):
-    integral-image stride-8 corner slices ~2.5 ms/frame
-    (tools/profile_net_stages.py); static interval-matrix MXU matmuls
-    (R_b @ occ @ C_b^T) 215 ms/frame (the ~2 MB of embedded constants are
-    pathological through the serving stack); this formulation ~0 ms.
+    (1,s)) with negative padding aligning output 0 to the base corner — a
+    pooling pattern, no integral image, no strided slices, no large
+    constants.
 
-    ``mode="rect-matmul"``: the interval-matrix formulation (kept as a
-    measured dead end and CPU-side cross-check).
+    ``mode="rect-matmul"``: the interval-matrix formulation
+    (R_b @ occ @ C_b^T), kept as a cross-check.
 
     ``mode="integral"``: the round-1 formulation — exclusive 2D cumsum
     integral image, edge-replicated pad, 4 stride-``stride`` corner slices
@@ -194,17 +190,11 @@ def non_empty_anchor_mask_structured(top_view: jnp.ndarray, bases: np.ndarray,
     Returns the (A,) mask in make_anchors' flat order (grid-major,
     base-minor).
     """
-    if occ is not None and occ.ndim == 3:
-        return _non_empty_anchor_mask_folded(
-            occ, bases, stride, feature_shape, threshold,
-            full_hw=(top_view.shape[0], top_view.shape[1]))
     h, w = top_view.shape[0], top_view.shape[1]
     gh, gw = feature_shape
     if occ is None:
-        # NOTE: deriving the channel sum here forces XLA to materialize a
-        # second f32 copy of the assembled view (~1.8 ms/frame on the fused
-        # voxelizer path) — callers on the hot path pass the voxelizer's
-        # ``return_occ`` output instead.
+        # a reduction over the whole view: callers on the hot path pass the
+        # voxelizer's ``return_occ`` output instead
         occ = jnp.sum(top_view, axis=-1)
     masks = []
 
@@ -243,10 +233,12 @@ def non_empty_anchor_mask_structured(top_view: jnp.ndarray, bases: np.ndarray,
             xhi = np.maximum(np.clip(x2 + gj, 0, w - 1), xlo)
             ry = jnp.asarray(_interval_matrix(ylo, yhi, h))      # (gh, h)
             cx = jnp.asarray(_interval_matrix(xlo, xhi, w))      # (gw, w)
+            # full f32 products: a TF32 product would round the sums
             rect = jax.lax.dot_general(
                 jax.lax.dot_general(ry, occ, (((1,), (0,)), ((), ())),
+                                    precision="highest",
                                     preferred_element_type=jnp.float32),
-                cx, (((1,), (1,)), ((), ())),
+                cx, (((1,), (1,)), ((), ())), precision="highest",
                 preferred_element_type=jnp.float32)              # (gh, gw)
             masks.append(rect > threshold)
         return jnp.stack(masks, axis=-1).reshape(-1)
@@ -275,78 +267,6 @@ def non_empty_anchor_mask_structured(top_view: jnp.ndarray, bases: np.ndarray,
         masks.append(rect > threshold)             # (gh, gw)
 
     # flat order: grid-major, base-minor
-    return jnp.stack(masks, axis=-1).reshape(-1)
-
-
-def _non_empty_anchor_mask_folded(occ4: jnp.ndarray, bases: np.ndarray,
-                                  stride: int,
-                                  feature_shape: Tuple[int, int],
-                                  threshold: float,
-                                  full_hw: Tuple[int, int]) -> jnp.ndarray:
-    """``mode="window"`` on a 2x2-FOLDED occupancy map, no unfold pass.
-
-    ``occ4`` is (h2, w2p, 4) with channel sub = u*2 + v for the full-res
-    cell (X, Y) = (2i+u, 2j+v) — exactly the s2d2/s2d2p voxelizer's
-    ``return_occ`` layout; ``full_hw`` is the true (unpadded) grid. The
-    unfold to (h, w) is a pure relayout, so instead of materializing it
-    (a traced ~94 us/frame transpose+slice on the serving path) each
-    full-res window sum is decomposed by row/column parity: a window over
-    X in [a, a+d) with even stride s covers, for each parity u, a FIXED
-    i-window of length ceil((a+d-u)/2) - ceil((a-u)/2) at stride s/2 —
-    two separable reduce_window passes per parity, summed. Identical
-    clamp semantics to the unfolded window mode (zeroed border row/col);
-    bit-identical decisions for the integer count-proxy occupancy (sums of
-    whole numbers are associativity-exact in f32 below 2^24).
-
-    Requires an even ``stride`` (the anchor grid then never mixes parities
-    across output positions). Lane-padding columns (j >= ceil(w/2)) must be
-    zero, which the voxelizer guarantees (points are only routed to valid
-    cells).
-    """
-    assert stride % 2 == 0, stride
-    h, w = full_hw
-    h2, w2p = occ4.shape[0], occ4.shape[1]
-    gh, gw = feature_shape
-    s2 = stride // 2
-    occ4 = occ4.astype(jnp.float32)
-
-    # zero the clamp-excluded border: full-res row h-1 / col w-1 live at
-    # folded (i, u) = ((h-1)//2, (h-1)%2) and (j, v) = ((w-1)//2, (w-1)%2)
-    ub, ib = (h - 1) % 2, (h - 1) // 2
-    vb, jb = (w - 1) % 2, (w - 1) // 2
-    occ_z = occ4.at[ib, :, ub * 2:ub * 2 + 2].set(0.0)
-    occ_z = occ_z.at[:, jb, vb::2].set(0.0)
-
-    def ceil2(n: int) -> int:
-        return -(-n // 2)
-
-    masks = []
-    for b in bases:
-        x1, y1, x2, y2 = (int(b[0]), int(b[1]), int(b[2]), int(b[3]))
-        if y2 <= y1 or x2 <= x1:         # degenerate base: empty rect
-            masks.append(jnp.zeros((gh, gw), bool))
-            continue
-        dy, dx = y2 - y1, x2 - x1
-        rows = jnp.zeros((gh, w2p, 2), jnp.float32)
-        for u in (0, 1):                 # dim 0 = full-res X, parity u
-            lo, hi = ceil2(y1 - u), ceil2(y1 + dy - u)
-            if hi <= lo:
-                continue
-            ln = hi - lo
-            rows = rows + jax.lax.reduce_window(
-                occ_z[:, :, u * 2:u * 2 + 2], 0.0, jax.lax.add,
-                (ln, 1, 1), (s2, 1, 1),
-                ((-lo, lo + (gh - 1) * s2 + ln - h2), (0, 0), (0, 0)))
-        rect = jnp.zeros((gh, gw), jnp.float32)
-        for v in (0, 1):                 # dim 1 = full-res Y, parity v
-            lo, hi = ceil2(x1 - v), ceil2(x1 + dx - v)
-            if hi <= lo:
-                continue
-            ln = hi - lo
-            rect = rect + jax.lax.reduce_window(
-                rows[:, :, v], 0.0, jax.lax.add, (1, ln), (1, s2),
-                ((0, 0), (-lo, lo + (gw - 1) * s2 + ln - w2p)))
-        masks.append(rect > threshold)
     return jnp.stack(masks, axis=-1).reshape(-1)
 
 

@@ -1,6 +1,6 @@
 """2D axis-aligned box geometry (pure jnp, fully vectorized, jit-safe).
 
-TPU-native equivalents of the reference numpy/cython box utilities:
+In-graph equivalents of the reference numpy/cython box utilities:
   * ``box_transform`` / ``box_transform_inv``  (reference src/net/processing/boxes.py:32-84)
   * ``clip_boxes``                             (reference src/net/processing/boxes.py:15-26)
   * ``bbox_overlaps`` IoU matrix               (reference src/net/lib/utils/bbox.pyx:14-57)
@@ -79,7 +79,7 @@ def bbox_overlaps(boxes: jnp.ndarray, query_boxes: jnp.ndarray) -> jnp.ndarray:
     """Dense (N, K) IoU matrix in the "+1" pixel convention.
 
     Vectorized jnp replacement of the cython ``bbox_overlaps``
-    (reference src/net/lib/utils/bbox.pyx:14-57); runs on the MXU-adjacent VPU
+    (reference src/net/lib/utils/bbox.pyx:14-57); runs elementwise
     entirely in-graph — no host round trip.
     """
     b = boxes[:, None, :]       # (N, 1, 4)

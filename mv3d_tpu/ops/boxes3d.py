@@ -1,6 +1,6 @@
 """3D box geometry and coordinate transforms (pure jnp, vectorized, jit-safe).
 
-TPU-native equivalents of the reference per-box python loops in
+In-graph equivalents of the reference per-box python loops in
 ``src/net/processing/boxes3d.py``. Every function here is vectorized over the
 box dimension and traceable under ``jax.jit``, so the whole proposal → 3D-box
 lift → projection chain stays on-device (the reference crosses to the host for

@@ -14,21 +14,18 @@ Scheme (standard symmetric PTQ, no calibration pass needed):
   * activations: per-tensor dynamic symmetric int8 — ``s_x = amax(|x|) /
     127`` computed per call (one cheap reduction), so no calibration data
     is required and accuracy degrades gracefully out of distribution.
-  * accumulation: int8 x int8 -> int32 via ``preferred_element_type``;
-    TPU v5e+ MXUs run int8 at 2x the bf16 FLOP rate. Dequantize with
-    ``s_x * s_w`` back to the requested float dtype.
+  * accumulation: int8 x int8 -> int32 via ``preferred_element_type``.
+    Dequantize with ``s_x * s_w`` back to the requested float dtype.
 
-The flax modules (:class:`QuantConv`, :class:`QuantDense`) are parameter-
-compatible drop-ins for ``nn.Conv(use_bias=False)`` / ``nn.Dense`` — same
-param name ("kernel"), shape, dtype, and initializer — selected by
-``ModelConfig.quant`` (config.py) at model construction.
+The layers in ``models/layers.py`` (``conv`` / ``dense`` with
+``quant="int8"``) call these on the same float "kernel" parameter as the
+float forward, selected by ``ModelConfig.quant`` (config.py).
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
@@ -64,7 +61,7 @@ def int8_dense(x: jnp.ndarray, w: jnp.ndarray,
     """``x @ w`` with both operands dynamically quantized to int8.
 
     x: (..., K) float; w: (K, N) float (checkpoint param). Accumulates in
-    int32 on the MXU, dequantizes to ``out_dtype``.
+    int32, dequantizes to ``out_dtype``.
     """
     xq, sx = quantize_activation(x)
     wq, sw = quantize_weight(w)
@@ -88,56 +85,3 @@ def int8_conv(x: jnp.ndarray, w: jnp.ndarray,
         dimension_numbers=("NHWC", "HWIO", "NHWC"),
         preferred_element_type=jnp.int32)
     return (acc.astype(jnp.float32) * (sx * sw)).astype(out_dtype)
-
-
-class QuantDense(nn.Module):
-    """Param-compatible ``nn.Dense(use_bias=False)`` with an int8 forward.
-
-    Same param name ("kernel"), shape, dtype (f32), and initializer as
-    ``nn.Dense`` — float checkpoints load into the quantized model and
-    vice versa. ``use_bias`` is accepted for call-site compatibility but
-    must be False (biased layers are the heads, which stay float).
-    """
-    features: int
-    use_bias: bool = False
-    dtype: Dtype = jnp.bfloat16
-
-    @nn.compact
-    def __call__(self, x):
-        assert not self.use_bias, "QuantDense is bias-free by design"
-        w = self.param("kernel", nn.initializers.lecun_normal(),
-                       (x.shape[-1], self.features), jnp.float32)
-        return int8_dense(x, w, out_dtype=self.dtype)
-
-
-class QuantConv(nn.Module):
-    """Param-compatible ``nn.Conv(use_bias=False)`` with an int8 forward."""
-    features: int
-    kernel_size: Tuple[int, int] = (3, 3)
-    strides: Tuple[int, int] = (1, 1)
-    padding: str = "SAME"
-    use_bias: bool = False
-    dtype: Dtype = jnp.bfloat16
-
-    @nn.compact
-    def __call__(self, x):
-        assert not self.use_bias, "QuantConv is bias-free by design"
-        w = self.param(
-            "kernel", nn.initializers.lecun_normal(),
-            (*self.kernel_size, x.shape[-1], self.features), jnp.float32)
-        return int8_conv(x, w, strides=self.strides, padding=self.padding,
-                         out_dtype=self.dtype)
-
-
-def conv_cls(quant: str):
-    """Conv module family for ``ModelConfig.quant``: "none" -> nn.Conv
-    (bias-free call sites only), "int8" -> :class:`QuantConv`."""
-    if quant == "int8":
-        return QuantConv
-    return nn.Conv
-
-
-def dense_cls(quant: str):
-    if quant == "int8":
-        return QuantDense
-    return nn.Dense

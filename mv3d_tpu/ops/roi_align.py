@@ -3,7 +3,7 @@
 Replaces the reference's custom TF C++/CUDA ``RoiPool`` op
 (src/net/roipooling_op/roi_pooling_op.cc + roi_pooling_op_gpu.cu.cc:20-85,
 max-pool over dynamically sized bins with an argmax backward pass) with two
-TPU-friendly variants:
+variants:
 
   * :func:`roi_align` — bilinear ROI-align (the default): a fixed sampling-tap
     grid per bin, averaged. Static shapes, clean gradients through ``gather``;
@@ -104,7 +104,7 @@ def roi_align_matmul(features: jnp.ndarray, rois: jnp.ndarray,
                      pooled: Tuple[int, int] = (6, 6),
                      samples: int = 2) -> jnp.ndarray:
     """ROI-align re-expressed as separable weight-matrix contractions — the
-    gathers become MXU matmuls (the canonical TPU reformulation).
+    gathers become matrix products.
 
     Bilinear sampling at tap y is exactly ``sum_h relu(1 - |y - h|) * F[h]``
     for in-range taps, and the tap grid is separable in y/x, so the whole
@@ -115,9 +115,8 @@ def roi_align_matmul(features: jnp.ndarray, rois: jnp.ndarray,
         out[n,p,q,c]  = mean_{s,t} sum_w WX[n,q,t,w] * B[n,p,s,w,c]
 
     Cost on the full KITTI map (stride-8 top view, R=128 rois, 6x6 bins,
-    2x2 taps, C=128): ~0.8 GFLOP/view/frame of bf16 MXU work replacing a
-    measured 0.38 ms/frame of XLA gather time for the 6-view align
-    (tools/profile_net_stages.py ``cheap-roi`` delta, round 5).
+    2x2 taps, C=128): ~0.8 GFLOP/view/frame of bf16 matrix work in place of
+    the gathers.
 
     Numerics: identical to :func:`roi_align` for taps inside [0, dim-1]
     (tested); out-of-range taps are CLAMPED to the edge first, where the
@@ -135,8 +134,8 @@ def roi_align_matmul(features: jnp.ndarray, rois: jnp.ndarray,
         ys[..., None] - jnp.arange(h, dtype=ys.dtype))).astype(dtype)
     wx = jnp.maximum(0.0, 1.0 - jnp.abs(
         xs[..., None] - jnp.arange(w, dtype=xs.dtype))).astype(dtype)
-    # HIGHEST: exact for f32 tests; for the model's bf16 features it is the
-    # MXU's native bf16-multiply/f32-accumulate mode (no extra passes)
+    # HIGHEST: exact for f32 (no TF32 rounding); for the model's bf16
+    # features it is the native bf16-multiply/f32-accumulate mode
     big = jnp.einsum("npsh,hwc->npswc", wy, features,
                      preferred_element_type=dtype,
                      precision=jax.lax.Precision.HIGHEST)

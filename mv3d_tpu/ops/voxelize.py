@@ -1,4 +1,4 @@
-"""TPU-native lidar voxelization: BEV ("top") and cylindrical front views.
+"""Lidar voxelization: BEV ("top") and cylindrical front views.
 
 This replaces the reference's entire preprocessing zoo — the pure-python triple
 loop (src/data.py:296-367), the PyCUDA kernels
@@ -11,25 +11,23 @@ single jit-able XLA program:
   * fixed-size padded point buffer (static shapes; invalid points are routed to
     a dump cell so there is no data-dependent control flow);
   * per-cell reductions expressed as scatter-max / scatter-add / scatter-min,
-    which XLA lowers to efficient sorted-segment updates on TPU;
+    which XLA lowers to atomic updates on the GPU;
   * batched via ``jax.vmap`` — frames are embarrassingly parallel.
 
 Crucially this runs *inside* the model graph, so `lidar -> boxes` is one XLA
 program with zero host round-trips (the reference crosses the device boundary
 several times per frame, SURVEY.md §3.2).
 
-Semantics are bit-identical to :mod:`mv3d_tpu.ops.voxelize_ref` (the numpy
-oracle), which the tests assert exactly like the reference's own CUDA-vs-CPU
-golden test (src/net/utility/front_top_preprocess.py:195-223).
-
-Parity scope note (measured, round 2): on the CPU backend the XLA path is
-bit-identical to the oracle. On real TPU hardware, XLA lowers the f32
-divisions in the quantization (``(x - x_min) / x_div``) to reciprocal
-multiplies, so ~0.02% of points that sit exactly on a cell/slice boundary
-quantize one cell off versus host numpy — the same class of deviation the
-reference's own CUDA path has vs its python path. All *device* formulations
-here (XLA scatter, Pallas height kernel, fused Pallas sweep) are bit-identical
-to each other on TPU (verified: 0/12.5M mismatches, tools/ study).
+Semantics are identical to :mod:`mv3d_tpu.ops.voxelize_ref` (the numpy
+oracle), which the tests assert like the reference's own CUDA-vs-CPU golden
+test (src/net/utility/front_top_preprocess.py:195-223). Values agree to the
+last bit or two: XLA turns the quantization's divisions into reciprocal
+multiplies on the CPU, and its f32 division on the GPU is one ulp off IEEE
+division for ~14% of quotients (measured on an H100), so a height may differ
+by an ulp and a point within an ulp of a cell boundary may land in the
+neighbouring cell. Heights, intensity and counts are maxima and
+integer-valued sums, so they do not depend on the order in which atomics
+land; the front view's per-pixel means are float sums whose order does.
 """
 
 from __future__ import annotations
@@ -66,31 +64,15 @@ def _crop_mask(points: jnp.ndarray, cfg: Config,
     return m
 
 
-def folded_pad_width(yn: int) -> int:
-    """Padded folded width w2p for the lane-padded "s2d2p" layout: yn/2
-    rounded up to a multiple of 16 so both the f32 (8, 128) and bf16
-    (16, 128) tilings of the (h2, w2p, 128) view stay bitcast-compatible
-    with the kernel's flat block output."""
-    return -(-(yn // 2) // 16) * 16
-
-
 def _top_prep(points: jnp.ndarray, cfg: Config,
-              num_points: Optional[jnp.ndarray], s2d=False):
-    """Per-frame point quantization shared by all top-view formulations.
+              num_points: Optional[jnp.ndarray]):
+    """Per-frame point quantization for the top view.
 
-    Returns (valid, cell, flat, val, refl): crop mask, per-point cell id
-    (dump cell = n_cells for invalid), flat (cell*zn + s_eff) height-slice
-    id with the inclusive-boundary redirect applied (dump = n_cells*zn),
-    the slice height value, and reflectance.
-
-    ``s2d``: number cells in the folded 2x2 space-to-depth order
-    (supercell-major, (dy, dx)-minor) instead of row-major — a pure
-    permutation that makes the fused kernel's output BE the conv stem's
-    folded input, eliminating the downstream relayout entirely (see
-    fold_view_s2d2). ``s2d="pad"`` additionally LANE-PADS: flat =
-    sc*128 + sub*zn + s_eff over a (h2, w2p) supercell grid (w2p =
-    folded_pad_width), so the heights block output bitcasts to a
-    (h2, w2p, 128) view; ``cell`` is then the folded cell id sc*4 + sub.
+    Returns (valid, cell, flat, val, refl, qz): crop mask, per-point cell
+    id (dump cell = n_cells for invalid), flat (cell*zn + s_eff)
+    height-slice id with the inclusive-boundary redirect applied (dump =
+    n_cells*zn), the slice height value, reflectance, and the height in
+    slice units.
     """
     t = cfg.top
     xn, yn, zn = t.xn, t.yn, t.zn
@@ -111,75 +93,9 @@ def _top_prep(points: jnp.ndarray, cfg: Config,
     s_eff = jnp.where(exact, s - 1, s)
     val = jnp.where(valid, jnp.where(exact, 1.0, frac), 0.0)
 
-    if s2d == "pad":
-        assert xn % 2 == 0 and yn % 2 == 0 and 4 * zn <= 128, (xn, yn, zn)
-        w2p = folded_pad_width(yn)
-        n_sc = (xn // 2) * w2p
-        supercell = (row // 2) * w2p + (col // 2)
-        sub = (row % 2) * 2 + (col % 2)
-        cell = jnp.where(valid, supercell * 4 + sub, n_sc * 4)
-        flat = jnp.where(valid, supercell * 128 + sub * zn + s_eff,
-                         n_sc * 128)
-        return valid, cell, flat, val, refl
-    if s2d:
-        assert xn % 2 == 0 and yn % 2 == 0, (xn, yn)
-        supercell = (row // 2) * (yn // 2) + (col // 2)
-        cell_id = supercell * 4 + (row % 2) * 2 + (col % 2)
-    else:
-        cell_id = row * yn + col
-    cell = jnp.where(valid, cell_id, n_cells)               # dump cell
+    cell = jnp.where(valid, row * yn + col, n_cells)        # dump cell
     flat = jnp.where(valid, cell * zn + s_eff, n_cells * zn)
-    return valid, cell, flat, val, refl
-
-
-def fold_view_s2d2(view: jnp.ndarray) -> jnp.ndarray:
-    """Standard (..., H, W, Zn+2) top view -> the folded "s2d2" layout
-    (..., H/2, W/2, (Zn+2)*4) produced by ``view_layout="s2d2"``.
-
-    Channel convention (NOT plain ``space_to_depth``; a fixed permutation of
-    it): [heights (dy, dx, s) -> 4*Zn] + [intensity (dy, dx) -> 4] +
-    [density (dy, dx) -> 4]. A fixed channel permutation is function-
-    equivalent for a conv stem (weights permute along), and this order lets
-    the fused voxelizer kernel emit the folded layout with NO relayout —
-    the fold is just a different static cell numbering.
-    """
-    *lead, h, w, c = view.shape
-    zn = c - 2
-    v = view.reshape(*lead, h // 2, 2, w // 2, 2, c)
-    v = jnp.moveaxis(v, -4, -3)                 # (..., h2, w2, 2, 2, c)
-    heights = v[..., :zn].reshape(*lead, h // 2, w // 2, 4 * zn)
-    inten = v[..., zn].reshape(*lead, h // 2, w // 2, 4)
-    dens = v[..., zn + 1].reshape(*lead, h // 2, w // 2, 4)
-    return jnp.concatenate([heights, inten, dens], axis=-1)
-
-
-def fold_view_s2d2p(view: jnp.ndarray):
-    """Standard (..., H, W, Zn+2) top view -> the lane-padded "s2d2p" pair:
-    heights (..., H/2, W2P, 128) with lanes sub*zn + s (zeros above 4*Zn and
-    in the padded columns), aux (..., H/2, W2P, 8) = [intensity x4,
-    density x4]. Pure reshape/pad of :func:`fold_view_s2d2`'s channel order —
-    the reference oracle for the kernel's native s2d2p emission."""
-    *lead, h, w, c = view.shape
-    zn = c - 2
-    w2 = w // 2
-    w2p = folded_pad_width(w)
-    folded = fold_view_s2d2(view)
-    lead_pad = [(0, 0)] * (len(lead) + 1)
-    heights = jnp.pad(folded[..., :4 * zn],
-                      lead_pad + [(0, w2p - w2), (0, 128 - 4 * zn)])
-    aux = jnp.pad(folded[..., 4 * zn:], lead_pad + [(0, w2p - w2), (0, 0)])
-    return heights, aux
-
-
-def unfold_occ4(occ4: jnp.ndarray, xn: int, yn: int) -> jnp.ndarray:
-    """Folded (..., h2, w2p, 4) occupancy (sub = u*2 + v for full-res cell
-    (2i+u, 2j+v)) -> full-res (..., xn, yn). The s2d2/s2d2p voxelizers
-    return the folded form (the anchor filter consumes it directly); this
-    is the relayout for tests and full-res consumers."""
-    *lead, h2, w2p, _ = occ4.shape
-    v = occ4.reshape(*lead, h2, w2p, 2, 2)
-    v = jnp.moveaxis(v, -2, -3)                 # (..., h2, 2, w2p, 2)
-    return v.reshape(*lead, xn, 2 * w2p)[..., :yn]
+    return valid, cell, flat, val, refl, qz
 
 
 def _occ_from_cells(heights2d, intensity, density, counts, cfg: Config):
@@ -191,9 +107,8 @@ def _occ_from_cells(heights2d, intensity, density, counts, cfg: Config):
     in [0, 1]) and density > 0 exactly when the cell holds >= 1 point — so
     at the default threshold 0.0 the point COUNT has the same zero-set as
     the channel sum and yields a bit-identical mask, without reducing the
-    46 MB height volume (which XLA would otherwise materialize in f32 just
-    for this — ~1.8 ms/frame, docs/PALLAS_NOTES.md). Non-zero thresholds
-    need the true sums; only then is the reduction paid.
+    46 MB height volume. Non-zero thresholds need the true sums; only then
+    is the reduction paid.
     """
     if cfg.pipeline.remove_empty_thresh == 0.0:
         return counts.astype(jnp.float32)
@@ -208,19 +123,16 @@ def lidar_to_top(points: jnp.ndarray, cfg: Config = _default_cfg,
     """(N, 4) padded lidar points -> (Xn, Yn, Zn+2) BEV map, float32.
 
     ``return_occ``: also return the (Xn, Yn) per-cell channel sum ("occupancy
-    mass", what the empty-anchor filter consumes). Computing it here — from
-    the pre-concatenation per-cell arrays on the fused path — matters:
-    profiling (docs/PALLAS_NOTES.md, round 2) showed that deriving it
-    downstream as ``top.sum(-1)`` makes XLA materialize a SECOND, f32 copy
-    of the whole 46 MB height volume (~1.8 ms/frame); here it is a cheap
-    per-cell reduction of arrays that already exist.
+    mass", what the empty-anchor filter consumes). Computing it here from
+    the per-cell arrays that already exist spares the filter a reduction
+    over the whole 46 MB view.
 
     Channels 0..Zn-1: per-slice max height above the slice floor (in z-cell
     units); channel Zn: reflectance of the highest point in the cell; channel
     Zn+1: ``min(1, log(count+1)/log 32)`` density. Output rows/cols are flipped
     exactly like the reference (top[Xn-1-qx, Yn-1-qy], src/data.py:345-352).
 
-    TPU scatter cost scales with the number of scattered *elements*, so the
+    Scatter cost scales with the number of scattered *elements*, so the
     implementation minimizes total scatter volume to three scalar scatters:
 
       1. heights: ONE scatter-max per point — a point exactly on a slice
@@ -249,33 +161,10 @@ def lidar_to_top(points: jnp.ndarray, cfg: Config = _default_cfg,
 
     # per-slice heights use ONE scatter-max with the boundary redirect
     # folded into flat/val (see _top_prep)
-    valid, cell, flat, val, refl = _top_prep(points, cfg, num_points)
-    qz = ((points[:, 2] - t.z_min) / t.z_div).astype(jnp.float32)
+    valid, cell, flat, val, refl, qz = _top_prep(points, cfg, num_points)
 
-    if aux is None and cfg.pipeline.use_pallas_fused:
-        # ONE sorted Pallas sweep for all 27 channels (heights + intensity +
-        # density) — replaces the three XLA scatters below
-        from .voxelize_pallas import scatter_top_fused
-        heights, counts, intensity = scatter_top_fused(
-            flat, val, jnp.where(valid, refl, 0.0), n_cells, zn,
-            order=cfg.pipeline.voxel_order,
-            body=cfg.pipeline.sweep_kernel)
-        density = jnp.minimum(1.0, jnp.log(counts + 1.0) / math.log(32))
-        heights2d = heights.reshape(n_cells, zn)
-        top = jnp.concatenate(
-            [heights2d, intensity[:, None], density[:, None]], axis=1)
-        top = top.reshape(xn, yn, zn + 2)
-        if return_occ:
-            occ = _occ_from_cells(heights2d, intensity, density, counts, cfg)
-            return top, occ.reshape(xn, yn)
-        return top
-
-    if cfg.pipeline.use_pallas_heights:
-        from .voxelize_pallas import scatter_max_sorted
-        heights = scatter_max_sorted(flat, val, n_cells * zn)
-    else:
-        heights = jnp.zeros(n_cells * zn + 1, jnp.float32).at[flat].max(
-            val)[:n_cells * zn]
+    heights = jnp.zeros(n_cells * zn + 1, jnp.float32).at[flat].max(
+        val)[:n_cells * zn]
     heights = heights.reshape(n_cells, zn)
 
     if aux is not None:
@@ -372,114 +261,6 @@ def lidar_to_top_batch(points: jnp.ndarray, cfg: Config = _default_cfg,
 
     ``return_occ``: also return the (B, Xn, Yn) occupancy mass for the
     empty-anchor filter (see :func:`lidar_to_top`)."""
-    if aux is not None and cfg.pipeline.view_layout in ("s2d2", "s2d2p"):
-        raise ValueError(
-            "folded view layouts compute all channels in-graph (fused "
-            "kernel); host aux planes are not supported in these layouts")
-    if cfg.pipeline.view_layout == "s2d2p":
-        # lane-padded folded layout: the kernel's heights blocks ARE the
-        # (h2, w2p, 128) conv-stem input (layout-preserving reshape) and
-        # count/intensity become the split stem's (h2, w2p, 8) aux plane —
-        # no relayout pass anywhere (docs/PALLAS_NOTES.md round 3)
-        assert cfg.pipeline.use_pallas_fused, \
-            "view_layout='s2d2p' requires the fused Pallas voxelizer"
-        from .voxelize_pallas import scatter_top_padded_batched
-        t = cfg.top
-        xn, yn, zn = t.xn, t.yn, t.zn
-        h2 = xn // 2
-        w2p = folded_pad_width(yn)
-        n_sc = h2 * w2p
-        bsz = points.shape[0]
-        if num_points is None:
-            _, _, flat, val, refl = jax.vmap(
-                lambda p: _top_prep(p, cfg, None, s2d="pad"))(points)
-        else:
-            _, _, flat, val, refl = jax.vmap(
-                lambda p, m: _top_prep(p, cfg, m, s2d="pad"))(points,
-                                                              num_points)
-        view_dtype = jnp.dtype(cfg.pipeline.top_view_dtype)
-        # bf16 views: the kernel converts its f32 VMEM accumulator on
-        # writeback (one rounding after the full f32 max — the exact
-        # semantics the bf16 parity test pins down), killing the separate
-        # 137 us/frame XLA convert pass of the (B, n_sc/8, 8, 128) volume.
-        # The thresh != 0 occupancy sums f32 heights, so that (non-default)
-        # config keeps the f32 kernel output.
-        kdtype = (view_dtype if cfg.pipeline.remove_empty_thresh == 0.0
-                  and cfg.pipeline.sweep_kernel == "rmw" else jnp.float32)
-        heights_b, counts, inten = scatter_top_padded_batched(
-            flat, val, jnp.where(flat < n_sc * 128, refl, 0.0), n_sc, zn,
-            body=cfg.pipeline.sweep_kernel, heights_dtype=kdtype)
-        heights = heights_b.reshape(bsz, h2, w2p, 128).astype(view_dtype)
-        density = jnp.minimum(1.0, jnp.log(counts + 1.0) / math.log(32))
-        aux_plane = jnp.concatenate(
-            [inten.reshape(bsz, h2, w2p, 4),
-             density.reshape(bsz, h2, w2p, 4)], axis=-1).astype(view_dtype)
-        top = (heights, aux_plane)
-        if not return_occ:
-            return top
-        if cfg.pipeline.remove_empty_thresh == 0.0:
-            occ4 = counts.reshape(bsz, h2, w2p, 4)   # count proxy, bit-equal
-        else:
-            hv = heights_b.reshape(bsz, h2, w2p, 128)
-            h4 = jnp.stack([jnp.sum(hv[..., s * zn:(s + 1) * zn], axis=-1)
-                            for s in range(4)], axis=-1)
-            occ4 = (h4 + inten.reshape(bsz, h2, w2p, 4)
-                    + density.reshape(bsz, h2, w2p, 4))
-        # FOLDED occupancy (B, h2, w2p, 4), sub = u*2 + v for full-res cell
-        # (2i+u, 2j+v): the anchor filter consumes this layout directly
-        # (ops/anchors._non_empty_anchor_mask_folded) — the unfold to
-        # (B, xn, yn) was a traced ~94 us/frame transpose+slice with no
-        # consumer left. Use :func:`unfold_occ4` where full-res is needed.
-        return top, occ4
-    if aux is None and cfg.pipeline.use_pallas_fused:
-        # native-batch kernel path: vmap of a scalar-prefetch pallas_call
-        # degrades to a sequential while loop with per-frame output assembly
-        # (~1 ms/frame, docs/PALLAS_NOTES.md) — feed the whole batch to one
-        # (B, n_tiles)-grid kernel instead
-        from .voxelize_pallas import scatter_top_fused_batched
-        t = cfg.top
-        xn, yn, zn = t.xn, t.yn, t.zn
-        n_cells = xn * yn
-        bsz = points.shape[0]
-        s2d = (cfg.pipeline.view_layout == "s2d2"
-               and xn % 2 == 0 and yn % 2 == 0)
-        if num_points is None:
-            _, _, flat, val, refl = jax.vmap(
-                lambda p: _top_prep(p, cfg, None, s2d=s2d))(points)
-        else:
-            _, _, flat, val, refl = jax.vmap(
-                lambda p, m: _top_prep(p, cfg, m, s2d=s2d))(points, num_points)
-        view_dtype = jnp.dtype(cfg.pipeline.top_view_dtype)
-        heights, counts, intensity = scatter_top_fused_batched(
-            flat, val, jnp.where(flat < n_cells * zn, refl, 0.0),
-            n_cells, zn, order=cfg.pipeline.voxel_order,
-            heights_dtype=view_dtype, body=cfg.pipeline.sweep_kernel)
-        density = jnp.minimum(1.0, jnp.log(counts + 1.0) / math.log(32))
-        if s2d:
-            # cells are already in folded order: the kernel output IS the
-            # conv stem's input — reshapes below are layout-preserving
-            h2, w2 = xn // 2, yn // 2
-            top = jnp.concatenate(
-                [heights.reshape(bsz, h2, w2, 4 * zn),
-                 intensity.reshape(bsz, h2, w2, 4).astype(view_dtype),
-                 density.reshape(bsz, h2, w2, 4).astype(view_dtype)],
-                axis=-1)
-            if return_occ:
-                occ = _occ_from_cells(heights.reshape(bsz, n_cells, zn),
-                                      intensity, density, counts, cfg)
-                # folded (B, h2, w2, 4) form, like the s2d2p branch
-                return top, occ.reshape(bsz, h2, w2, 4)
-            return top
-        heights2d = heights.reshape(bsz, n_cells, zn)
-        top = jnp.concatenate(
-            [heights2d, intensity[:, :, None].astype(view_dtype),
-             density[:, :, None].astype(view_dtype)], axis=2)
-        top = top.reshape(bsz, xn, yn, zn + 2)
-        if return_occ:
-            occ = _occ_from_cells(heights2d, intensity, density, counts, cfg)
-            return top, occ.reshape(bsz, xn, yn)
-        return top
-
     fn = partial(lidar_to_top, cfg=cfg, return_occ=return_occ)
     args = [points]
     in_axes = [0]

@@ -1,4 +1,4 @@
-"""Host-side (numpy) reference voxelizers — the golden oracle for the TPU path.
+"""Host-side (numpy) reference voxelizers — the golden oracle for the device path.
 
 These reimplement, from scratch but with *identical semantics*, the reference
 CPU preprocessors:
@@ -8,7 +8,7 @@ CPU preprocessors:
   * ``lidar_to_front`` (reference src/data.py:56-111): cylindrical front view —
     per-pixel mean of (height above ground, distance, intensity).
 
-They are used (a) as the oracle in golden-parity tests of the XLA/Pallas
+They are used (a) as the oracle in golden-parity tests of the XLA
 voxelizers — the same testing pattern the reference uses for its CUDA kernels
 (src/net/utility/front_top_preprocess.py:195-223, asserts bitwise equality) —
 and (b) as the CPU baseline denominator in bench.py.

@@ -3,7 +3,7 @@
 The reference has *no* distribution story — single process, single GPU,
 batch 1, with "mimic batch" host-side loss accumulation
 (SURVEY.md §2.3; reference mv3d.py:1063-1065, 1265-1272). Here scaling is
-expressed the TPU-native way:
+data parallelism over a device mesh:
 
   * a ``jax.sharding.Mesh`` with a ``data`` axis (and a reserved ``model``
     axis — at ~10^7 params this detector needs no tensor parallelism, but the
@@ -11,21 +11,17 @@ expressed the TPU-native way:
   * batch arrays sharded ``P("data")`` along their leading axis, parameters
     replicated ``P()``;
   * the train step jitted with those shardings — XLA inserts the gradient
-    ``psum`` over ICI automatically because the loss is a global mean over the
-    sharded batch. Gradient accumulation becomes *real* data-parallel batching.
+    all-reduce (NCCL on GPUs) automatically because the loss is a global mean
+    over the sharded batch. Gradient accumulation becomes *real*
+    data-parallel batching.
 
 Multi-host: call ``jax.distributed.initialize()`` before building the mesh and
 feed each process its local shard via
 ``jax.make_array_from_process_local_data`` — nothing else changes. This recipe
 is executed for real (2 OS processes, 8-device global mesh, Gloo collectives)
 in ``tests/test_distributed.py``; sharded checkpointing for it is the orbax
-backend of ``train/checkpoint.py``.
-
-Multi-slice (past one ICI domain): :func:`make_hybrid_mesh` adds a ``dcn``
-axis; the batch shards over both data-like axes and XLA's gradient reduction
-becomes hierarchical (ICI within a slice, one hop across the slow DCN links).
-Inference fan-out has no cross-device communication at all. Exercised on the
-virtual backend by ``tests/test_multichip.py::test_hybrid_dcn_mesh_*``.
+backend of ``train/checkpoint.py``. Inference fan-out has no
+cross-device communication at all.
 """
 
 from __future__ import annotations
@@ -50,40 +46,6 @@ def make_mesh(n_devices: Optional[int] = None, model_axis: int = 1,
     return Mesh(arr, ("data", "model"))
 
 
-def make_hybrid_mesh(n_slices: int, devices_per_slice: Optional[int] = None,
-                     devices: Optional[Sequence] = None) -> Mesh:
-    """("dcn", "data", "model") mesh for multi-slice (DCN) deployments.
-
-    Scaling past one ICI domain is still pure data parallelism for this
-    model: the batch shards over BOTH the ``dcn`` and ``data`` axes
-    (``P(("dcn", "data"))``), parameters stay replicated, and the training
-    gradient reduction XLA inserts is hierarchical — reduce within each
-    slice over ICI first, then once across slices over the slow DCN links
-    (the standard multi-slice recipe; inference has no cross-device
-    communication at all, so serving fan-out scales linearly).
-
-    On real multi-slice hardware pass ``devices`` from
-    ``jax.experimental.mesh_utils.create_hybrid_device_mesh(
-    (devices_per_slice,), (n_slices,))`` so the ``dcn`` axis maps onto the
-    actual slice boundaries; on a single slice or the CPU test backend the
-    plain reshape below is equivalent.
-    """
-    devices = list(devices if devices is not None else jax.devices())
-    if devices_per_slice is None:
-        assert len(devices) % n_slices == 0, (len(devices), n_slices)
-        devices_per_slice = len(devices) // n_slices
-    arr = np.array(devices[:n_slices * devices_per_slice]).reshape(
-        n_slices, devices_per_slice, 1)
-    return Mesh(arr, ("dcn", "data", "model"))
-
-
-def _batch_spec(mesh: Mesh) -> P:
-    """Batch partition spec: shard the leading axis over every data-like
-    mesh axis ("dcn" and "data" when present)."""
-    axes = tuple(a for a in mesh.axis_names if a in ("dcn", "data"))
-    return P(axes)
-
-
 def replicate(tree, mesh: Mesh):
     """Replicate a pytree (parameters/optimizer state) across the mesh."""
     s = NamedSharding(mesh, P())
@@ -92,13 +54,7 @@ def replicate(tree, mesh: Mesh):
 
 def batch_divisor(mesh: Mesh) -> int:
     """Number of ways the leading batch axis is split on this mesh."""
-    spec = _batch_spec(mesh)
-    entry = spec[0] if len(spec) else None
-    if entry is None:
-        return 1
-    # PartitionSpec normalizes a 1-tuple entry to the bare axis name
-    axes = (entry,) if isinstance(entry, str) else tuple(entry)
-    return int(np.prod([mesh.shape[a] for a in axes]) if axes else 1)
+    return int(mesh.shape["data"])
 
 
 def check_batch_divisible(batch: Dict[str, Any], mesh: Mesh):
@@ -119,7 +75,7 @@ def check_batch_divisible(batch: Dict[str, Any], mesh: Mesh):
 def shard_batch(batch: Dict[str, Any], mesh: Mesh):
     """Shard every batch array along its leading (batch) axis."""
     check_batch_divisible(batch, mesh)
-    s = NamedSharding(mesh, _batch_spec(mesh))
+    s = NamedSharding(mesh, P("data"))
     return {k: (jax.device_put(v, s) if hasattr(v, "shape") else v)
             for k, v in batch.items()}
 
@@ -130,7 +86,7 @@ def make_sharded_train_step(model, optimizer, train_targets, mesh: Mesh,
 
     Returns step(variables, opt_state, batch, key) -> (vars, opt_state, losses)
     with variables/opt_state replicated and batch sharded P("data"). The
-    global-mean losses make XLA reduce gradients with psum over ICI.
+    global-mean losses make XLA all-reduce the gradients.
     """
     import optax
 
@@ -139,7 +95,7 @@ def make_sharded_train_step(model, optimizer, train_targets, mesh: Mesh,
 
     cfg = cfg or model.cfg
     repl = NamedSharding(mesh, P())
-    data_sharded = NamedSharding(mesh, _batch_spec(mesh))
+    data_sharded = NamedSharding(mesh, P("data"))
 
     def step(variables, opt_state, batch, key):
         params = {n: variables[n]["params"] for n in SUBNET_NAMES}
@@ -198,7 +154,7 @@ def make_sharded_infer_step(model, mesh: Mesh, score_threshold: float = 0.05):
     from ..ops.voxelize import lidar_to_front_batch, lidar_to_top_batch
 
     repl = NamedSharding(mesh, P())
-    data_sharded = NamedSharding(mesh, _batch_spec(mesh))
+    data_sharded = NamedSharding(mesh, P("data"))
     cfg = model.cfg
 
     def infer(variables, points, rgb):

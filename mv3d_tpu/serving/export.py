@@ -10,16 +10,23 @@ once as a portable StableHLO artifact:
   * serving hosts need the artifact directory + jax, not ``mv3d_tpu``'s
     model code or config tree;
   * ``jax.export`` cross-platform lowering lets a CPU-only build box emit a
-    TPU serving program (``platforms=("tpu", "cpu")``), and the runtime
+    GPU serving program (``platforms=("cuda", "cpu")``), and the runtime
     picks the branch matching its backend;
   * the signature is frozen (batch size, point bucket, image shape), so the
     serving process never recompiles or retraces.
 
 Artifact layout (a directory):
 
-  ``serving_fn.bin``  — serialized ``jax.export.Exported`` (StableHLO)
-  ``weights.npz``     — flattened model variables ("/"-joined tree paths)
-  ``meta.json``       — signature + provenance (shapes, flags, jax version)
+  ``serving_fn.mlirbc`` — the exported program's StableHLO bytecode
+  ``weights.npz``       — flattened model variables ("/"-joined tree paths)
+  ``meta.json``         — signature + provenance (shapes, flags, jax version)
+                          and the calling-convention fields of the
+                          ``jax.export.Exported`` the loader rebuilds
+
+``jax.export``'s own serializer needs the optional ``flatbuffers`` package,
+which serving hosts need not have; the program is single-device and its
+signature is fully described by ``meta.json``, so the loader rebuilds the
+``Exported`` from these three files with nothing but jax and numpy.
 
 ``load_serving`` needs only this directory and returns a numpy-in /
 numpy-out callable.
@@ -37,7 +44,7 @@ import numpy as np
 
 from ..config import Config
 
-_FN_FILE = "serving_fn.bin"
+_FN_FILE = "serving_fn.mlirbc"
 _WEIGHTS_FILE = "weights.npz"
 _META_FILE = "meta.json"
 
@@ -128,6 +135,63 @@ def build_serving_fn(cfg: Config, score_threshold: float = 0.05,
     return fn, input_specs
 
 
+def _avals_meta(avals) -> list:
+    return [[list(a.shape), str(a.dtype)] for a in avals]
+
+
+def _avals(meta_avals) -> tuple:
+    return tuple(jax.core.ShapedArray(tuple(shape), jnp.dtype(dtype))
+                 for shape, dtype in meta_avals)
+
+
+def _exported_meta(exported) -> Dict[str, Any]:
+    """The fields :func:`_rebuild_exported` needs besides the bytecode."""
+    if exported.nr_devices != 1 or any(
+            s is not None for s in (*exported.in_shardings_hlo,
+                                    *exported.out_shardings_hlo)):
+        raise ValueError("serving artifacts are single-device programs")
+    if exported.ordered_effects or exported.unordered_effects:
+        raise ValueError("serving programs must be free of effects")
+    return {
+        "fun_name": exported.fun_name,
+        "in_avals": _avals_meta(exported.in_avals),
+        "out_avals": _avals_meta(exported.out_avals),
+        "calling_convention_version": exported.calling_convention_version,
+        "module_kept_var_idx": list(exported.module_kept_var_idx),
+        "uses_global_constants": exported.uses_global_constants,
+    }
+
+
+def _rebuild_exported(meta: Dict[str, Any], program: bytes, variables):
+    """``jax.export.Exported`` of ``fn(variables, *inputs) -> (boxes3d,
+    probs, mask)`` from the artifact's meta, bytecode and weights tree."""
+    if meta["jax_version"] != jax.__version__:
+        raise ValueError(f"artifact exported with jax {meta['jax_version']}; "
+                         f"this is jax {jax.__version__}: export it again")
+    ex = meta["exported"]
+    n_in = len(ex["in_avals"])
+    inputs = (0,) * len(meta["input_names"])
+    return jax.export.Exported(
+        fun_name=ex["fun_name"],
+        in_tree=jax.tree.structure(((variables, *inputs), {})),
+        in_avals=_avals(ex["in_avals"]),
+        out_tree=jax.tree.structure((0,) * len(meta["output_names"])),
+        out_avals=_avals(ex["out_avals"]),
+        _has_named_shardings=False,
+        _in_named_shardings=(None,) * n_in,
+        _out_named_shardings=(None,) * len(ex["out_avals"]),
+        in_shardings_hlo=(None,) * n_in,
+        out_shardings_hlo=(None,) * len(ex["out_avals"]),
+        nr_devices=1,
+        platforms=tuple(meta["platforms"]),
+        ordered_effects=(), unordered_effects=(), disabled_safety_checks=(),
+        mlir_module_serialized=program,
+        calling_convention_version=ex["calling_convention_version"],
+        module_kept_var_idx=tuple(ex["module_kept_var_idx"]),
+        uses_global_constants=ex["uses_global_constants"],
+        _get_vjp=None)
+
+
 def _var_specs(variables) -> Any:
     return jax.tree.map(
         lambda a: jax.ShapeDtypeStruct(np.shape(a), np.asarray(a).dtype),
@@ -142,7 +206,7 @@ def export_serving(variables, cfg: Config, out_dir: str, batch_size: int = 1,
     """Export the serving program + weights to ``out_dir`` and return it.
 
     ``platforms``: lowering targets (default: the current default backend).
-    Pass ``("tpu", "cpu")`` to build a TPU artifact on a CPU-only host
+    Pass ``("cuda", "cpu")`` to build a GPU artifact on a CPU-only host
     (cross-platform lowering; the program never runs at export time).
     """
     os.makedirs(out_dir, exist_ok=True)
@@ -153,7 +217,7 @@ def export_serving(variables, cfg: Config, out_dir: str, batch_size: int = 1,
         platforms=tuple(platforms) if platforms else None,
     )(_var_specs(variables), *input_specs(batch_size))
     with open(os.path.join(out_dir, _FN_FILE), "wb") as f:
-        f.write(exported.serialize())
+        f.write(exported.mlir_module_serialized)
     np.savez(os.path.join(out_dir, _WEIGHTS_FILE), **_flatten(variables))
     meta = {
         "batch_size": batch_size,
@@ -166,6 +230,7 @@ def export_serving(variables, cfg: Config, out_dir: str, batch_size: int = 1,
         "input_names": (["points_q", "refl_q", "num_points", "rgb"]
                         if quantized else ["points", "num_points", "rgb"]),
         "output_names": ["boxes3d", "probs", "mask"],
+        "exported": _exported_meta(exported),
     }
     if quantized:
         # the host-side quantization grid matching the frozen in-graph
@@ -244,9 +309,10 @@ class ServingModel:
 def load_serving(artifact_dir: str) -> ServingModel:
     """Load an artifact written by :func:`export_serving`."""
     with open(os.path.join(artifact_dir, _FN_FILE), "rb") as f:
-        exported = jax.export.deserialize(bytearray(f.read()))
+        program = f.read()
     with np.load(os.path.join(artifact_dir, _WEIGHTS_FILE)) as z:
         variables = _unflatten({k: z[k] for k in z.files})
     with open(os.path.join(artifact_dir, _META_FILE)) as f:
         meta = json.load(f)
-    return ServingModel(exported, variables, meta)
+    return ServingModel(_rebuild_exported(meta, program, variables),
+                        variables, meta)

@@ -1,6 +1,6 @@
-"""Sequence-model motion tracker (flax GRU over box trajectories).
+"""Sequence-model motion tracker (GRU over box trajectories).
 
-TPU-native counterpart of the reference's LSTM tracker prototype
+JAX counterpart of the reference's LSTM tracker prototype
 (src/tracker.py, experiments/archive/exp_seq_001_top_lstm): a small recurrent
 model over per-frame box translations that predicts the next-frame position,
 usable as a learned alternative to the UKF for tracklet smoothing/prediction.
@@ -8,24 +8,47 @@ usable as a learned alternative to the UKF for tracklet smoothing/prediction.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 
+from ..models.layers import Module, Scope, dense, orthogonal, zeros
 
-class MotionGRU(nn.Module):
+
+@dataclass(frozen=True)
+class MotionGRU(Module):
     """GRU over (dx, dy, dz) displacement sequences -> next displacement."""
     hidden: int = 64
 
-    @nn.compact
-    def __call__(self, deltas: jnp.ndarray) -> jnp.ndarray:
+    def forward(self, s: Scope, deltas: jnp.ndarray) -> jnp.ndarray:
         """(B, T, 3) past displacements -> (B, T, 3) predicted next ones."""
-        hs = nn.RNN(nn.GRUCell(features=self.hidden))(deltas)   # (B, T, H)
-        return nn.Dense(3)(hs)
+        c = s.child(None, "GRUCell")
+        f, dt = self.hidden, jnp.float32
+        # input projections of every step at once (with biases) ...
+        xr, xz, xn = (dense(c, deltas, f, dtype=dt, name=n)
+                      for n in ("ir", "iz", "in"))
+        # ... and the hidden-to-hidden kernels (only "hn" has a bias)
+        hid = {n: c.child(n, "Dense") for n in ("hr", "hz", "hn")}
+        w = {n: sc.param("kernel", orthogonal, (f, f))
+             for n, sc in hid.items()}
+        b_hn = hid["hn"].param("bias", zeros, (f,))
+
+        def step(h, x):
+            r_i, z_i, n_i = x
+            r = jax.nn.sigmoid(r_i + h @ w["hr"])
+            z = jax.nn.sigmoid(z_i + h @ w["hz"])
+            n = jnp.tanh(n_i + r * (h @ w["hn"] + b_hn))
+            h = (1.0 - z) * n + z * h
+            return h, h
+
+        h0 = jnp.zeros((deltas.shape[0], f), dt)
+        xs = tuple(jnp.swapaxes(v, 0, 1) for v in (xr, xz, xn))
+        _, hs = jax.lax.scan(step, h0, xs)
+        return dense(s, jnp.swapaxes(hs, 0, 1), 3, dtype=dt)   # (B, T, 3)
 
 
 class SeqMotionTracker:

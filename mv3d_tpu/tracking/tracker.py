@@ -3,7 +3,7 @@
 Clean-room equivalent of the reference's offline SORT/Kalman trackers
 (utils/kalman/, utils/bag_to_kitti fusion tooling): greedy BEV-IoU/distance
 association + per-track CTRV UKF smoothing. Operates on host numpy — this is
-post-processing, not the TPU hot path.
+post-processing, not the device hot path.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Per-subnet checkpointing: npz flat dicts (single-host, default) or orbax
 (sharded / multi-host arrays).
 
-TPU-native equivalent of the reference's per-scope ``tf.train.Saver`` wrapper
+Equivalent of the reference's per-scope ``tf.train.Saver`` wrapper
 ``Net`` (reference src/mv3d.py:117-161): each subnet
 (``top_view_rpn`` / ``image_feature`` / ``front_feature`` / ``fusion``) is
 saved and restored independently under ``checkpoint/<tag>/<subnet>/<step>``,

@@ -1,6 +1,6 @@
 """In-graph RPN / fusion target assignment (padded, masked, PRNG-sampled).
 
-TPU-native replacements for the host-side numpy target ops that force the
+In-graph replacements for the host-side numpy target ops that force the
 reference to split every training step into two ``sess.run`` calls with CPU
 work in between (SURVEY.md §3.2):
 

@@ -1,7 +1,7 @@
 """User-facing train/predict API: ``MV3D``, ``Trainer``, ``Predictor``.
 
 API parity with the reference's ``src/mv3d.py`` classes (``MV3D`` :164,
-``Trainer`` :721, ``Predictor`` :666) on a TPU-native core:
+``Trainer`` :721, ``Predictor`` :666) on a single-program JAX core:
 
   * one jitted train step = voxelize (optional) + trunks + RPN + in-graph
     targets + fusion + losses + adam update (the reference needs two
@@ -33,27 +33,10 @@ from ..utils import Logger, Timer
 from .checkpoint import SubnetCheckpointer, load_progress, save_progress
 
 
-def _as_jnp(v):
-    """jnp.asarray that passes through the "s2d2p" (heights, aux) pair."""
-    if isinstance(v, (tuple, list)):
-        return tuple(_as_jnp(x) for x in v)
-    return jnp.asarray(v)
-
-
 def _batchify_view(v):
-    """To-device + add a batch dim if single-frame; handles the "s2d2p"
-    (heights, aux) pair."""
-    if isinstance(v, (tuple, list)):
-        return tuple(_batchify_view(x) for x in v)
+    """To-device + add a batch dim if single-frame."""
     a = jnp.asarray(v)
     return a[None] if a.ndim == 3 else a
-
-
-def _frame0(view):
-    """First frame of a batched view (pair-aware)."""
-    if isinstance(view, (tuple, list)):
-        return tuple(x[0] for x in view)
-    return view[0]
 
 
 def _prepare_views(batch: Dict[str, jnp.ndarray], cfg: Config
@@ -398,7 +381,7 @@ class Trainer(MV3D):
             dets, _ = self._infer_points(self.variables, pts, num,
                                          jnp.asarray(batch["rgb"]), thresh)
         else:
-            dets, _ = self._infer(self.variables, _as_jnp(batch["top"]),
+            dets, _ = self._infer(self.variables, jnp.asarray(batch["top"]),
                                   jnp.asarray(batch["rgb"]),
                                   jnp.asarray(batch["front"]), thresh)
         det_mask = np.asarray(dets.mask)
@@ -417,7 +400,7 @@ class Trainer(MV3D):
     def fit_iteration(self, batch: Dict[str, np.ndarray],
                       is_validation: bool = False) -> Dict[str, float]:
         """One optimization (or validation) step on a host batch dict."""
-        batch = {k: _as_jnp(v) for k, v in batch.items() if k != "tags"}
+        batch = {k: jnp.asarray(v) for k, v in batch.items() if k != "tags"}
         step = self._eval_step if is_validation else self._train_step
         self.variables, self.opt_state, loss_dict = step(
             self.variables, self.opt_state, batch, self._next_key())
@@ -525,7 +508,7 @@ class PredictorForTest(MV3D):
             outs, _ = model.extract_features(variables, top, rgb, front,
                                              train=False)
             rpn = outs["rpn"]
-            inside = model.anchor_mask(_frame0(top))
+            inside = model.anchor_mask(top[0])
             props = rpn_proposals(rpn["scores"][0], rpn["deltas"][0],
                                   model.anchors, inside, config)
             rois3d = box3d_ops.top_box_to_box3d(props.rois[:, 1:5], config)
@@ -574,9 +557,7 @@ class PredictorForTest(MV3D):
             setattr(self, "probs" + head, p)
         pm = np.asarray(props.mask)
         self._last = {
-            # pair views have no single drawable plane; keep the heights
-            "top": np.asarray(_frame0(top)[0] if isinstance(top, tuple)
-                              else top[0]), "rgb": np.asarray(rgb[0]),
+            "top": np.asarray(top[0]), "rgb": np.asarray(rgb[0]),
             "proposals": np.asarray(props.rois)[pm][:, 1:5],
             "boxes3d": boxes3d,
             "gt_boxes3d": (np.asarray(gt_boxes3d)
@@ -686,11 +667,7 @@ class TesterRPN(MV3D):
 
         def _rpn(variables, top):
             out = model.top_rpn.apply(variables["top_view_rpn"], top, False)
-            # model.anchor_mask handles ALL view layouts ("hwc", folded
-            # "s2d2", and the "s2d2p" pair) — the generic
-            # non_empty_anchor_mask assumes an unfolded (H, W, C) view and
-            # would silently compute a wrong occupancy on folded layouts
-            inside = model.anchor_mask(_frame0(top))
+            inside = model.anchor_mask(top[0])
             props = rpn_proposals(out["scores"][0], out["deltas"][0],
                                   model.anchors, inside, config)
             return props, out["score_map"]

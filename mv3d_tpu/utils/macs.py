@@ -1,6 +1,6 @@
 """Static cost model: parameter and FLOP counting for jitted functions.
 
-TPU-native equivalent of the reference's graph-walking MAC counter
+Equivalent of the reference's graph-walking MAC counter
 ``print_macs_to_file`` (src/net/blocks.py:16-111): instead of walking TF ops,
 we ask XLA itself via ``jax.jit(fn).lower(...).compile().cost_analysis()`` and
 count parameters from the pytree.
@@ -44,7 +44,7 @@ def flops_of(fn: Callable, *example_args) -> Optional[float]:
 def print_macs_to_file(fn: Callable, example_args, variables,
                        path: str = "macs.txt"):
     """Write a cost report (parity with the reference's macs file output)."""
-    lines = ["MV3D TPU cost report", "=" * 40]
+    lines = ["MV3D cost report", "=" * 40]
     for name, n in param_breakdown(variables).items():
         lines.append(f"params[{name}]: {n:,}")
     fl = flops_of(fn, *example_args)

@@ -1,6 +1,6 @@
 """Training metrics and debug-image observability.
 
-TPU-native replacement for the reference's TensorBoard wiring — scalar loss
+Replacement for the reference's TensorBoard wiring — scalar loss
 summaries (mv3d.py:833-844), periodic gt/proposal/prediction image summaries
 (summary_image + log_rpn/log_fusion_net_target/predict_log, mv3d.py:579-935)
 and the fixed-format text loss table (mv3d.py:1002-1003):

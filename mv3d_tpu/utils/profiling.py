@@ -1,6 +1,6 @@
 """Profiling helpers: device traces and per-step timing.
 
-TPU equivalent of the reference's TF ``RunOptions(FULL_TRACE)`` +
+Equivalent of the reference's TF ``RunOptions(FULL_TRACE)`` +
 ``RunMetadata`` TensorBoard timelines (src/mv3d.py:1211-1213, 1366-1384):
 ``jax.profiler`` traces plus a simple step-time aggregator.
 """

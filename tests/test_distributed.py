@@ -17,16 +17,16 @@ import pytest
 
 # Same host-keyed persistent compile cache as conftest.py: without it both
 # workers cold-compile the full train graph every run, which blew the fixed
-# 900 s timeout under host load (VERDICT r3 weak #4).
+# 900 s timeout under host load.
 _CACHE_SETUP = r"""
 import hashlib
+from mv3d_tpu.utils.compile_cache import setup_compile_cache
 try:
     with open("/proc/cpuinfo") as _f:
         _flags = next((ln for ln in _f if ln.startswith("flags")), "")
 except OSError:
     _flags = ""
-jax.config.update("jax_compilation_cache_dir", os.path.join(
-    os.getcwd(), ".jax_cache", hashlib.sha1(_flags.encode()).hexdigest()[:8]))
+setup_compile_cache(hashlib.sha1(_flags.encode()).hexdigest()[:8])
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
 """
 
@@ -162,8 +162,8 @@ batch = {"points": mk(pts), "num_points": mk(np.full(8, n_pts, np.int32)),
          "rgb": mk(rgb), "gt_boxes3d": mk(gt3d), "gt_labels": mk(gt_labels),
          "gt_mask": mk(gt_mask)}
 
-# in-graph sharded voxelization (Pallas-interpret kernels under pjit across
-# 2 processes) feeding the sharded train step
+# in-graph sharded voxelization (XLA scatters under jit across 2 processes)
+# feeding the sharded train step
 view_fn = jax.jit(lambda p, n: (lidar_to_top_batch(p, cfg, n),
                                 lidar_to_front_batch(p, cfg, n)),
                   out_shardings=(data, data))

@@ -55,6 +55,29 @@ def test_export_roundtrip_bitexact(variables, tmp_path):
     assert meta["input_names"] == ["points", "num_points", "rgb"]
 
 
+def test_artifact_needs_no_flatbuffers(variables, tmp_path, monkeypatch):
+    """Serving hosts may lack the optional package jax.export's own
+    serializer needs: exporting and loading an artifact never imports it,
+    and the rebuilt program has the exporter's signature."""
+    import sys
+    monkeypatch.setitem(sys.modules, "flatbuffers", None)   # import fails
+    monkeypatch.delitem(sys.modules, "jax._src.export.serialization",
+                        raising=False)
+    out = export_serving(variables, CFG, str(tmp_path / "art"), batch_size=1,
+                         score_threshold=0.05)
+    served = load_serving(out)
+    fn, specs = build_serving_fn(CFG, score_threshold=0.05)
+    want = jax.export.export(jax.jit(fn))(
+        jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype),
+                     variables), *specs(1))
+    assert served.exported.in_tree == want.in_tree
+    assert served.exported.in_avals == want.in_avals
+    assert served.exported.out_avals == want.out_avals
+    pts, num, rgb = _inputs(b=1, seed=5)
+    boxes, probs, mask = served(pts, num, rgb)
+    assert np.isfinite(boxes).all() and mask.dtype == bool
+
+
 def test_export_predict_single_frame(variables, tmp_path):
     """predict() pads a ragged cloud to the frozen bucket and filters by the
     detection mask."""
@@ -99,13 +122,13 @@ def test_export_quantized_signature(variables, tmp_path):
 
 
 def test_export_cross_platform_lowering(variables, tmp_path):
-    """A CPU-only build host can emit a TPU+CPU artifact (cross-platform
+    """A CPU-only build host can emit a GPU+CPU artifact (cross-platform
     lowering; nothing executes at export time) and the loaded artifact still
     runs on the CPU branch."""
     out = export_serving(variables, CFG, str(tmp_path / "artx"), batch_size=1,
-                         platforms=("tpu", "cpu"))
+                         platforms=("cuda", "cpu"))
     served = load_serving(out)
-    assert set(served.meta["platforms"]) == {"tpu", "cpu"}
+    assert set(served.meta["platforms"]) == {"cuda", "cpu"}
     pts, num, rgb = _inputs(b=1, seed=3)
     boxes, probs, mask = served(pts, num, rgb)
     assert np.isfinite(boxes).all() and mask.dtype == bool

@@ -167,50 +167,6 @@ def test_siamese_fusion_mode(rng):
     np.testing.assert_allclose(e, [[5.0, 10.0, 35.0, 70.0]])
 
 
-def test_s2d2_view_layout_function_equivalence(rng):
-    """A model on the folded (view_layout=s2d2) view with stem weights
-    permuted by the fixed channel map equals the standard model on the
-    standard view — the fold is function-preserving for a conv stem."""
-    from mv3d_tpu.ops.voxelize import fold_view_s2d2
-
-    f32 = dataclasses.replace(
-        CFG, model=dataclasses.replace(CFG.model, compute_dtype="float32"))
-    folded_cfg = dataclasses.replace(
-        f32, pipeline=dataclasses.replace(f32.pipeline, view_layout="s2d2"))
-
-    m_std = MV3DNet(f32)
-    m_fold = MV3DNet(folded_cfg)
-    var_std = m_std.init_variables(jax.random.PRNGKey(3))
-    var_fold = jax.tree.map(lambda x: x, var_std)
-
-    # folded channel j -> s2d(view) channel index (see fold_view_s2d2)
-    zn = CFG.top.zn
-    perm = np.empty(4 * (zn + 2), np.int64)
-    for j in range(4 * zn):
-        dydx, s = divmod(j, zn)
-        perm[j] = dydx * (zn + 2) + s
-    for a in range(2):                      # intensity, density groups
-        for dydx in range(4):
-            perm[4 * zn + 4 * a + dydx] = dydx * (zn + 2) + zn + a
-    stem = var_std[TOP_VIEW_RPN]["params"]["trunk"]["ConvBnRelu_0"]["Conv_0"]
-    fold_params = jax.tree.map(lambda x: x, var_fold[TOP_VIEW_RPN])
-    fold_params["params"]["trunk"]["ConvBnRelu_0"]["Conv_0"] = {
-        **stem, "kernel": stem["kernel"][:, :, perm, :]}
-    var_fold[TOP_VIEW_RPN] = fold_params
-
-    top = (rng.rand(1, *CFG.top_shape).astype(np.float32) * 0.1)
-    out_std = m_std.top_rpn.apply(var_std[TOP_VIEW_RPN], jnp.asarray(top),
-                                  False)
-    out_fold = m_fold.top_rpn.apply(var_fold[TOP_VIEW_RPN],
-                                    fold_view_s2d2(jnp.asarray(top)), False)
-    np.testing.assert_allclose(np.asarray(out_std["scores"]),
-                               np.asarray(out_fold["scores"]),
-                               rtol=0, atol=2e-4)
-    np.testing.assert_allclose(np.asarray(out_std["features"]),
-                               np.asarray(out_fold["features"]),
-                               rtol=0, atol=2e-4)
-
-
 def test_backbone_ablation_surface(rng):
     """The reference's backbone ablation family is constructible and runs:
     VGG rgb trunk (mv3d_net.py:214-252, cfg.RGB_BASENET) and basic-block
@@ -235,151 +191,3 @@ def test_backbone_ablation_surface(rng):
     with pytest.raises(AssertionError):
         MV3DNet(dataclasses.replace(CFG, model=dataclasses.replace(
             CFG.model, backbone_repetitions=(2, 2, 2, 2))))
-
-
-def test_s2d2p_split_stem_function_equivalence(rng):
-    """The lane-padded (s2d2p) model with its split stem built from an s2d2
-    model's stem weights (heights lanes = the first 4*zn folded channels,
-    aux conv = the last 8) produces the SAME trunk outputs — conv is linear
-    over input-channel groups and the pad lanes/columns are zero."""
-    from mv3d_tpu.ops.voxelize import fold_view_s2d2, fold_view_s2d2p
-
-    f32 = dataclasses.replace(
-        CFG, model=dataclasses.replace(CFG.model, compute_dtype="float32"))
-    fold_cfg = dataclasses.replace(
-        f32, pipeline=dataclasses.replace(
-            f32.pipeline, use_pallas_fused=True, view_layout="s2d2"))
-    pad_cfg = dataclasses.replace(
-        f32, pipeline=dataclasses.replace(
-            f32.pipeline, use_pallas_fused=True, view_layout="s2d2p"))
-
-    m_fold = MV3DNet(fold_cfg)
-    m_pad = MV3DNet(pad_cfg)
-    vf = m_fold.init_variables(jax.random.PRNGKey(5))[TOP_VIEW_RPN]
-    vp = jax.tree.map(lambda x: x,
-                      m_pad.init_variables(jax.random.PRNGKey(6))[TOP_VIEW_RPN])
-
-    zn = CFG.top.zn
-    stem = vf["params"]["trunk"]["ConvBnRelu_0"]
-    k = np.asarray(stem["Conv_0"]["kernel"])          # (3, 3, 4*zn+8, 64)
-    kh = np.zeros(k.shape[:2] + (128, k.shape[3]), k.dtype)
-    kh[:, :, :4 * zn] = k[:, :, :4 * zn]
-    # build the pad model's variables from the fold model's: same tree except
-    # the stem (ConvBnRelu_0 -> stem_h/stem_aux/stem_bn)
-    for col, src in (("params", "BatchNorm_0"), ("batch_stats", "BatchNorm_0")):
-        trunk_f = vf[col]["trunk"]
-        trunk_p = dict(trunk_f)
-        del trunk_p["ConvBnRelu_0"]
-        if col == "params":
-            trunk_p["stem_h"] = {"kernel": jnp.asarray(kh)}
-            trunk_p["stem_aux"] = {"kernel": stem["Conv_0"]["kernel"][:, :, 4 * zn:]}
-            trunk_p["stem_bn"] = trunk_f["ConvBnRelu_0"][src]
-        else:
-            trunk_p["stem_bn"] = trunk_f["ConvBnRelu_0"][src]
-        vp[col] = dict(vf[col])
-        vp[col]["trunk"] = trunk_p
-
-    top = (rng.rand(1, *CFG.top_shape).astype(np.float32) * 0.1)
-    out_fold = m_fold.top_rpn.apply(vf, fold_view_s2d2(jnp.asarray(top)),
-                                    False)
-    out_pad = m_pad.top_rpn.apply(vp, fold_view_s2d2p(jnp.asarray(top)),
-                                  False)
-    np.testing.assert_allclose(np.asarray(out_fold["scores"]),
-                               np.asarray(out_pad["scores"]),
-                               rtol=0, atol=2e-4)
-    np.testing.assert_allclose(np.asarray(out_fold["features"]),
-                               np.asarray(out_pad["features"]),
-                               rtol=0, atol=2e-4)
-
-
-def test_s2d2p_training_step_runs(rng):
-    """forward_train works end-to-end on the lane-padded pair layout."""
-    import jax.numpy as jnp
-
-    from mv3d_tpu.ops import voxelize
-
-    cfg = dataclasses.replace(CFG, pipeline=dataclasses.replace(
-        CFG.pipeline, use_pallas_fused=True, view_layout="s2d2p"))
-    model = MV3DNet(cfg)
-    variables = model.init_variables(jax.random.PRNGKey(0))
-    b = make_batch(np.random.RandomState(0))
-    pts = np.stack([np.random.RandomState(1).uniform(0, 16, (1, 2048)),
-                    np.random.RandomState(2).uniform(-6, 6, (1, 2048)),
-                    np.random.RandomState(3).uniform(-4.2, 0.8, (1, 2048)),
-                    np.random.RandomState(4).uniform(0, 1, (1, 2048))],
-                   -1).astype(np.float32)
-    top, occ = voxelize.lidar_to_top_batch(jnp.asarray(pts), cfg,
-                                           return_occ=True)
-    batch = {"top": top, "top_occ": occ,
-             "rgb": jnp.asarray(b["rgb"]), "front": jnp.asarray(b["front"]),
-             "gt_boxes3d": jnp.asarray(b["gt_boxes3d"]),
-             "gt_labels": jnp.asarray(b["gt_labels"]),
-             "gt_mask": jnp.asarray(b["gt_mask"])}
-    loss_dict, aux = jax.jit(model.forward_train)(
-        variables, batch, jax.random.PRNGKey(1))
-    for k, v in loss_dict.items():
-        assert np.isfinite(float(v)), (k, v)
-    # inference path too (anchor occ derived from the pair when no occ given)
-    dets, props = jax.jit(partial(model.forward_inference,
-                                  score_threshold=0.0))(
-        variables, top, batch["rgb"], batch["front"])
-    assert np.isfinite(np.asarray(dets.probs)).all()
-
-
-def test_s2d2_training_step_runs(rng):
-    """forward_train works end-to-end on the folded view layout (the batch
-    carries top+top_occ from the voxelizer; anchor filter consumes occ)."""
-    import jax.numpy as jnp
-
-    from mv3d_tpu.ops import voxelize
-
-    cfg = dataclasses.replace(CFG, pipeline=dataclasses.replace(
-        CFG.pipeline, use_pallas_fused=True, view_layout="s2d2"))
-    model = MV3DNet(cfg)
-    variables = model.init_variables(jax.random.PRNGKey(0))
-    b = make_batch(np.random.RandomState(0))
-    pts = np.stack([np.random.RandomState(1).uniform(0, 16, (1, 2048)),
-                    np.random.RandomState(2).uniform(-6, 6, (1, 2048)),
-                    np.random.RandomState(3).uniform(-4.2, 0.8, (1, 2048)),
-                    np.random.RandomState(4).uniform(0, 1, (1, 2048))],
-                   -1).astype(np.float32)
-    top, occ = voxelize.lidar_to_top_batch(jnp.asarray(pts), cfg,
-                                           return_occ=True)
-    batch = {"top": top, "top_occ": occ,
-             "rgb": jnp.asarray(b["rgb"]), "front": jnp.asarray(b["front"]),
-             "gt_boxes3d": jnp.asarray(b["gt_boxes3d"]),
-             "gt_labels": jnp.asarray(b["gt_labels"]),
-             "gt_mask": jnp.asarray(b["gt_mask"])}
-    loss_dict, aux = jax.jit(model.forward_train)(
-        variables, batch, jax.random.PRNGKey(1))
-    for k, v in loss_dict.items():
-        assert np.isfinite(float(v)), (k, v)
-
-
-def test_anchor_mask_layout_equivalence(rng):
-    """model.anchor_mask gives the SAME anchor mask for the hwc view, the
-    folded s2d2 view, and the lane-padded s2d2p pair — the invariant the
-    diagnostic paths (Trainer._rpn, cli/test.py rpn_only/probe_rpn) rely on
-    when they call anchor_mask(_frame0(top)) instead of the layout-naive
-    generic non_empty_anchor_mask (VERDICT r2 weak #6)."""
-    from mv3d_tpu.ops.voxelize import fold_view_s2d2, fold_view_s2d2p
-
-    fold_cfg = dataclasses.replace(
-        CFG, pipeline=dataclasses.replace(
-            CFG.pipeline, use_pallas_fused=True, view_layout="s2d2"))
-    pad_cfg = dataclasses.replace(
-        CFG, pipeline=dataclasses.replace(
-            CFG.pipeline, use_pallas_fused=True, view_layout="s2d2p"))
-    m_hwc = MV3DNet(CFG)
-    m_fold = MV3DNet(fold_cfg)
-    m_pad = MV3DNet(pad_cfg)
-
-    top = rng.rand(*CFG.top_shape).astype(np.float32)
-    top[top < 0.7] = 0.0              # sparse occupancy like a real scan
-    top = jnp.asarray(top)
-    want = np.asarray(m_hwc.anchor_mask(top))
-    got_fold = np.asarray(m_fold.anchor_mask(fold_view_s2d2(top)))
-    got_pad = np.asarray(m_pad.anchor_mask(fold_view_s2d2p(top)))
-    assert want.any() and not want.all()
-    np.testing.assert_array_equal(want, got_fold)
-    np.testing.assert_array_equal(want, got_pad)

@@ -1,13 +1,9 @@
 """Multi-chip sharding tests on the virtual 8-device CPU mesh: the full
 data-parallel train step (dryrun_multichip) and sharded inference."""
 
-import sys
-
 import jax
 import numpy as np
 import pytest
-
-sys.path.insert(0, "/root/repo")
 
 
 def test_mesh_shapes():
@@ -56,91 +52,6 @@ def test_sharded_inference():
     assert np.isfinite(np.asarray(dets.boxes3d)).all()
 
 
-def test_hybrid_dcn_mesh_train_and_infer():
-    """Multi-slice (DCN) recipe on the virtual backend: 8 devices as a
-    2-slice x 4-device ("dcn", "data", "model") hybrid mesh. The batch
-    shards over BOTH data-like axes; training's gradient reduction is then
-    hierarchical (ICI within a slice, one DCN hop across) and inference
-    fans out with no cross-device communication — results must be
-    identical to the flat single-axis data mesh."""
-    import optax
-
-    import __graft_entry__ as ge
-    from mv3d_tpu.models.mv3d_net import MV3DNet
-    from mv3d_tpu.models.nets import SUBNET_NAMES
-    from mv3d_tpu.parallel.mesh import (make_hybrid_mesh, make_mesh,
-                                        make_sharded_infer_step,
-                                        make_sharded_train_step, replicate,
-                                        shard_batch)
-
-    cfg = ge._tiny_config()
-    model = MV3DNet(cfg)
-    mesh = make_hybrid_mesh(2)            # 2 "slices" x 4 devices
-    assert mesh.devices.shape == (2, 4, 1)
-    assert mesh.axis_names == ("dcn", "data", "model")
-
-    rng = np.random.RandomState(0)
-    b, n = 8, cfg.pipeline.max_points
-    pts = np.stack([rng.uniform(0, 16, (b, n)), rng.uniform(-6, 6, (b, n)),
-                    rng.uniform(-4, 0.8, (b, n)), rng.uniform(0, 1, (b, n))],
-                   axis=-1).astype(np.float32)
-    rgb = rng.rand(b, *cfg.rgb_shape).astype(np.float32)
-
-    variables = model.init_variables(jax.random.PRNGKey(0))
-
-    # inference fan-out: hybrid mesh == flat data mesh, bit-identical
-    hv = replicate(variables, mesh)
-    hb = shard_batch({"points": pts, "rgb": rgb}, mesh)
-    dets_h = make_sharded_infer_step(model, mesh)(
-        hv, hb["points"], hb["rgb"])
-    flat = make_mesh(8)
-    fv = replicate(variables, flat)
-    fb = shard_batch({"points": pts, "rgb": rgb}, flat)
-    dets_f = make_sharded_infer_step(model, flat)(
-        fv, fb["points"], fb["rgb"])
-    np.testing.assert_array_equal(np.asarray(dets_h.boxes3d),
-                                  np.asarray(dets_f.boxes3d))
-    np.testing.assert_array_equal(np.asarray(dets_h.mask),
-                                  np.asarray(dets_f.mask))
-
-    # one hybrid-sharded train step: finite losses
-    g = cfg.pipeline.max_gt
-    from mv3d_tpu.ops import boxes3d as box3d_ops
-    gt3d = np.zeros((b, g, 8, 3), np.float32)
-    gt_labels = np.zeros((b, g), np.int32)
-    gt_mask = np.zeros((b, g), bool)
-    for i in range(b):
-        gt3d[i, 0] = np.asarray(box3d_ops.box3d_compose(
-            [8.0, 0.0, -1.5], [1.5, 1.6, 4.0], [0.0, 0.0, 0.3], cfg))
-        gt_labels[i, 0] = 1
-        gt_mask[i, 0] = True
-    optimizer = optax.adam(1e-3)
-    params = {nm: variables[nm]["params"] for nm in SUBNET_NAMES}
-    opt_state = replicate(optimizer.init(params), mesh)
-    batch = shard_batch({
-        "points": pts, "num_points": np.full(b, n, np.int32), "rgb": rgb,
-        "gt_boxes3d": gt3d, "gt_labels": gt_labels, "gt_mask": gt_mask,
-    }, mesh)
-    # sharded in-graph voxelization feeding the train step (as in
-    # __graft_entry__.dryrun_multichip)
-    from jax.sharding import NamedSharding
-    from mv3d_tpu.ops.voxelize import (lidar_to_front_batch,
-                                       lidar_to_top_batch)
-    from mv3d_tpu.parallel.mesh import _batch_spec
-    view_fn = jax.jit(
-        lambda p, nn: (lidar_to_top_batch(p, cfg, nn),
-                       lidar_to_front_batch(p, cfg, nn)),
-        out_shardings=(NamedSharding(mesh, _batch_spec(mesh)),) * 2)
-    top, front = view_fn(batch["points"], batch["num_points"])
-    batch = {"top": top, "front": front, "rgb": batch["rgb"],
-             "gt_boxes3d": batch["gt_boxes3d"],
-             "gt_labels": batch["gt_labels"], "gt_mask": batch["gt_mask"]}
-    step = make_sharded_train_step(model, optimizer, SUBNET_NAMES, mesh, cfg)
-    _, _, losses = step(hv, opt_state, batch, jax.random.PRNGKey(1))
-    for k, v in losses.items():
-        assert np.isfinite(float(v)), k
-
-
 def test_uneven_batch_raises_clear_error():
     """batch % mesh != 0 must fail loudly BEFORE jit with an actionable
     message, not as an XLA sharding error deep inside compilation
@@ -161,3 +72,18 @@ def test_uneven_batch_raises_clear_error():
     assert ok["points"].shape == (8, 32, 4)
     # scalars / non-arrays are ignored by the check
     check_batch_divisible({"n": 3, "tag": "x"}, mesh)
+
+
+def test_chip_smoke_four_device_phase():
+    """chip_smoke.py --devices 4, rehearsed on 4 virtual CPU devices at the
+    tiny config: sharded train step and inference fan-out against one
+    device."""
+    import __graft_entry__ as ge
+    import chip_smoke
+    from mv3d_tpu.models.mv3d_net import MV3DNet
+
+    cfg = ge._tiny_config()
+    variables = MV3DNet(cfg).init_variables(jax.random.PRNGKey(0))
+    info = chip_smoke.phase_multidevice(cfg, variables, jax.devices()[:4],
+                                        seed=0)
+    assert info["devices"] == 4 and len(info["detections"]) == 4

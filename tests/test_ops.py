@@ -215,7 +215,7 @@ def test_roi_pool_max_vs_align():
 
 
 def test_roi_align_matmul_parity():
-    """roi_align_matmul (separable weight-matrix einsums on the MXU —
+    """roi_align_matmul (separable weight-matrix einsums —
     model.roi_align_impl='matmul') matches the gather formulation to float
     tolerance for in-range ROIs, and its gradient flows (it is linear in
     the features)."""

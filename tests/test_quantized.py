@@ -1,10 +1,10 @@
 """int8 serving quantization (ops/quantized.py + model.quant plumbing).
 
-The reference has no quantization story; this is TPU-serving surface
+The reference has no quantization story; this is serving surface
 (ROADMAP: "int8 quantization of the fusion-head matmuls / ROI features").
 Contract under test:
   * int8 dense/conv approximate their float counterparts within PTQ error
-  * QuantConv / QuantDense are param-compatible with nn.Conv / nn.Dense
+  * int8 conv / dense layers are param-compatible with the float ones
     (same names, shapes, init) so float checkpoints load unchanged
   * model.quant="int8" changes ONLY the inference forward — training steps
     keep the float path, and the variables tree is identical
@@ -53,23 +53,40 @@ def test_int8_weight_scale_per_channel():
         assert np.abs(back[..., c] - w[..., c]).max() / denom < 0.01
 
 
-def test_quant_modules_param_compatible():
-    import flax.linen as nn
-    x = jnp.zeros((2, 8, 8, 6))
-    k = jax.random.PRNGKey(0)
-    vf = nn.Conv(12, (3, 3), (1, 1), padding="SAME",
-                 use_bias=False).init(k, x)
-    vq = q.QuantConv(12, (3, 3), (1, 1), padding="SAME").init(k, x)
-    assert jax.tree.structure(vf) == jax.tree.structure(vq)
-    np.testing.assert_array_equal(np.asarray(vf["params"]["kernel"]),
-                                  np.asarray(vq["params"]["kernel"]))
+@pytest.mark.parametrize("kind", ["conv", "dense"])
+def test_quant_layers_param_compatible(kind):
+    """An int8 layer creates the same "kernel" (name, shape, initial value)
+    as the float layer and as the flax.linen layer it replaced, so float
+    checkpoints load unchanged."""
+    nn = pytest.importorskip("flax.linen")
+    from mv3d_tpu.models.layers import Module, conv, dense
 
-    xd = jnp.zeros((4, 10))
-    vf = nn.Dense(7, use_bias=False).init(k, xd)
-    vq = q.QuantDense(7).init(k, xd)
-    assert jax.tree.structure(vf) == jax.tree.structure(vq)
-    np.testing.assert_array_equal(np.asarray(vf["params"]["kernel"]),
-                                  np.asarray(vq["params"]["kernel"]))
+    x = jnp.zeros((2, 8, 8, 6)) if kind == "conv" else jnp.zeros((4, 10))
+
+    class Plain(Module):
+        def __init__(self, quant):
+            self.quant = quant
+
+        def forward(self, s, x):
+            if kind == "conv":
+                return conv(s, x, 12, use_bias=False, quant=self.quant)
+            return dense(s, x, 7, use_bias=False, quant=self.quant)
+
+    class Linen(nn.Module):
+        @nn.compact
+        def __call__(self, x):
+            if kind == "conv":
+                return nn.Conv(12, (3, 3), padding="SAME", use_bias=False,
+                               name="Conv_0")(x)
+            return nn.Dense(7, use_bias=False, name="Dense_0")(x)
+
+    k = jax.random.PRNGKey(0)
+    vq = Plain("int8").init(k, x)
+    for other in (Plain("none").init(k, x), Linen().init(k, x)):
+        assert jax.tree.structure(other) == jax.tree.structure(vq)
+        for a, b in zip(jax.tree.leaves(other), jax.tree.leaves(vq)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert np.asarray(Plain("int8").apply(vq, x + 1.0)).dtype == jnp.bfloat16
 
 
 @pytest.fixture(scope="module")

@@ -206,72 +206,6 @@ def test_didi_center_car_filter(rng):
         rtol=0, atol=5e-5)
 
 
-def test_pallas_heights_kernel_parity(rng):
-    """The Pallas sorted-segment scatter kernel (interpret mode on CPU) is
-    bit-identical to the XLA scatter path and the numpy oracle."""
-    from mv3d_tpu.ops import voxelize_pallas
-    pts = make_cloud(rng, 4000, SMALL)
-    padded, _ = voxelize.pad_points(pts, 8192)
-    got = np.asarray(voxelize_pallas.heights_pallas(padded, SMALL))
-    want = voxelize_ref.lidar_to_top_np(pts, SMALL)[:, :, :SMALL.top.zn]
-    np.testing.assert_allclose(got, want, rtol=0, atol=5e-5)
-
-    # full lidar_to_top with the flag routes through the kernel
-    pcfg = dataclasses.replace(SMALL, pipeline=dataclasses.replace(
-        SMALL.pipeline, use_pallas_heights=True))
-    full = np.asarray(voxelize.lidar_to_top(padded, pcfg))
-    want_full = voxelize_ref.lidar_to_top_np(pts, SMALL)
-    np.testing.assert_allclose(full, want_full, rtol=0, atol=5e-5)
-
-
-def test_pallas_fused_kernel_parity(rng):
-    """The fused sweep (heights + intensity + density in one Pallas kernel,
-    interpret mode on CPU) is bit-identical to the numpy oracle, including
-    the boundary-redirect and first-max-point intensity tie semantics."""
-    pts = make_cloud(rng, 4000, SMALL)
-    # force slice-boundary-exact points to exercise the redirect
-    t = SMALL.top
-    pts[:32, 2] = t.z_min + t.z_div * rng.randint(1, t.zn, 32)
-    # duplicate positions with DIFFERENT reflectance (ties on qz within a
-    # cell): the first-in-scan-order point must win the intensity channel
-    pts[32:48, :3] = pts[:16, :3]
-    pts[32:48, 3] = pts[:16, 3] * 0.5 + 0.25
-    padded, _ = voxelize.pad_points(pts, 8192)
-
-    want = voxelize_ref.lidar_to_top_np(pts, SMALL)
-    for body in ("rmw", "regcache", "chains"):
-        fcfg = dataclasses.replace(SMALL, pipeline=dataclasses.replace(
-            SMALL.pipeline, use_pallas_fused=True, sweep_kernel=body))
-        got = np.asarray(voxelize.lidar_to_top(padded, fcfg))
-        np.testing.assert_allclose(got, want, rtol=0, atol=5e-5,
-                                   err_msg=body)
-
-        # batched path
-        got_b = np.asarray(voxelize.lidar_to_top_batch(
-            np.stack([padded, padded]), fcfg))
-        np.testing.assert_allclose(got_b[1], want, rtol=0, atol=5e-5,
-                                   err_msg=body)
-
-
-@pytest.mark.slow
-def test_pallas_fused_alternative_orders(rng):
-    """The two alternative point-grouping strategies (counting-permutation
-    "bin", jnp-bitonic "bitonic") match the oracle bit-for-bit too."""
-    pts = make_cloud(rng, 4000, SMALL)
-    t = SMALL.top
-    pts[:32, 2] = t.z_min + t.z_div * rng.randint(1, t.zn, 32)
-    pts[32:48, :3] = pts[:16, :3]
-    pts[32:48, 3] = pts[:16, 3] * 0.5 + 0.25
-    padded, _ = voxelize.pad_points(pts, 8192)
-    want = voxelize_ref.lidar_to_top_np(pts, SMALL)
-    for order in ("bin", "bitonic", "pallas-sort"):
-        fcfg = dataclasses.replace(SMALL, pipeline=dataclasses.replace(
-            SMALL.pipeline, use_pallas_fused=True, voxel_order=order))
-        got = np.asarray(voxelize.lidar_to_top(padded, fcfg))
-        np.testing.assert_allclose(got, want, rtol=0, atol=5e-5,
-                                   err_msg=order)
-
-
 def test_return_occ_mask_parity(rng):
     """The voxelizer's return_occ output drives the empty-anchor filter to a
     BIT-IDENTICAL mask vs summing the assembled view (the count proxy shares
@@ -280,125 +214,14 @@ def test_return_occ_mask_parity(rng):
 
     pts = make_cloud(rng, 3000, SMALL)
     padded, _ = voxelize.pad_points(pts, 8192)
-    for fused in (False, True):
-        fcfg = dataclasses.replace(SMALL, pipeline=dataclasses.replace(
-            SMALL.pipeline, use_pallas_fused=fused))
-        top, occ = voxelize.lidar_to_top(padded, fcfg, return_occ=True)
-        bases = anchor_ops.mv3d_car_bases()
-        feat = fcfg.top_feature_shape()
-        want = np.asarray(anchor_ops.non_empty_anchor_mask_structured(
-            top, bases, 8, feat, 0.0))
-        got = np.asarray(anchor_ops.non_empty_anchor_mask_structured(
-            top, bases, 8, feat, 0.0, occ=occ))
-        np.testing.assert_array_equal(got, want, err_msg=f"fused={fused}")
-        # occ zero-set == view channel-sum zero-set
-        view_sum = np.asarray(top).sum(-1)
-        np.testing.assert_array_equal(np.asarray(occ) > 0, view_sum > 0)
-
-
-def test_s2d2p_view_layout_is_lane_padded_fold(rng):
-    """view_layout=s2d2p emits the lane-padded (heights, aux) pair equal to
-    fold_view_s2d2p(standard view) bit-exactly — the kernel's block output
-    IS the split-stem input, no relayout — with identical occupancy."""
-    pts = make_cloud(rng, 3000, SMALL)
-    padded, _ = voxelize.pad_points(pts, 8192)
-    batch = np.stack([padded, padded])
-    base = dataclasses.replace(SMALL, pipeline=dataclasses.replace(
-        SMALL.pipeline, use_pallas_fused=True))
-    top_h, occ_h = voxelize.lidar_to_top_batch(batch, base, return_occ=True)
-    t = SMALL.top
-    w2p = voxelize.folded_pad_width(t.yn)
-    want_h, want_aux = voxelize.fold_view_s2d2p(top_h)
-    for body in ("rmw", "regcache", "chains"):
-        padc = dataclasses.replace(SMALL, pipeline=dataclasses.replace(
-            SMALL.pipeline, use_pallas_fused=True, view_layout="s2d2p",
-            sweep_kernel=body))
-        (heights, aux), occ_p = voxelize.lidar_to_top_batch(batch, padc,
-                                                            return_occ=True)
-        assert heights.shape == (2, t.xn // 2, w2p, 128)
-        assert aux.shape == (2, t.xn // 2, w2p, 8)
-        np.testing.assert_array_equal(np.asarray(heights),
-                                      np.asarray(want_h), err_msg=body)
-        np.testing.assert_array_equal(np.asarray(aux), np.asarray(want_aux),
-                                      err_msg=body)
-        # folded layouts return the (B, h2, w2p, 4) occupancy directly
-        # (the anchor filter consumes it without an unfold pass)
-        assert occ_p.shape == (2, t.xn // 2, w2p, 4)
-        np.testing.assert_array_equal(
-            np.asarray(occ_h),
-            np.asarray(voxelize.unfold_occ4(occ_p, t.xn, t.yn)),
-            err_msg=body)
-
-
-def test_s2d2p_bf16_in_kernel_writeback(rng):
-    """s2d2p + bfloat16: the kernel accumulates heights in an f32 VMEM
-    scratch and converts ONCE on writeback — output must equal the f32
-    kernel's heights rounded once (monotone rounding commutes with max),
-    with identical aux plane and occupancy."""
-    import jax.numpy as jnp
-
-    pts = make_cloud(rng, 3000, SMALL)
-    padded, _ = voxelize.pad_points(pts, 8192)
-    batch = np.stack([padded, padded])
-    f32c = dataclasses.replace(SMALL, pipeline=dataclasses.replace(
-        SMALL.pipeline, use_pallas_fused=True, view_layout="s2d2p"))
-    bfc = dataclasses.replace(SMALL, pipeline=dataclasses.replace(
-        SMALL.pipeline, use_pallas_fused=True, view_layout="s2d2p",
-        top_view_dtype="bfloat16"))
-    (h32, a32), occ32 = voxelize.lidar_to_top_batch(batch, f32c,
-                                                    return_occ=True)
-    (h16, a16), occ16 = voxelize.lidar_to_top_batch(batch, bfc,
-                                                    return_occ=True)
-    assert h16.dtype == jnp.bfloat16
-    np.testing.assert_array_equal(
-        np.asarray(h32.astype(jnp.bfloat16).astype(jnp.float32)),
-        np.asarray(h16.astype(jnp.float32)))
-    np.testing.assert_array_equal(
-        np.asarray(a32.astype(jnp.bfloat16).astype(jnp.float32)),
-        np.asarray(a16.astype(jnp.float32)))
-    np.testing.assert_array_equal(np.asarray(occ32), np.asarray(occ16))
-
-
-def test_bf16_view_dtype_is_rounded_f32(rng):
-    """top_view_dtype=bfloat16 produces EXACTLY the f32 view rounded once
-    (monotone round-to-nearest commutes with the height max)."""
-    import jax.numpy as jnp
-
-    pts = make_cloud(rng, 3000, SMALL)
-    padded, _ = voxelize.pad_points(pts, 8192)
-    batch = np.stack([padded, padded])
-    f32cfg = dataclasses.replace(SMALL, pipeline=dataclasses.replace(
-        SMALL.pipeline, use_pallas_fused=True))
-    bf16cfg = dataclasses.replace(SMALL, pipeline=dataclasses.replace(
-        SMALL.pipeline, use_pallas_fused=True, top_view_dtype="bfloat16"))
-    top32, occ32 = voxelize.lidar_to_top_batch(batch, f32cfg, return_occ=True)
-    top16, occ16 = voxelize.lidar_to_top_batch(batch, bf16cfg, return_occ=True)
-    assert top16.dtype == jnp.bfloat16
-    np.testing.assert_array_equal(
-        np.asarray(top32.astype(jnp.bfloat16).astype(jnp.float32)),
-        np.asarray(top16.astype(jnp.float32)))
-    # occupancy (counts proxy) is dtype-independent
-    np.testing.assert_array_equal(np.asarray(occ32), np.asarray(occ16))
-
-
-def test_s2d2_view_layout_is_folded_hwc(rng):
-    """view_layout=s2d2 output == fold_view_s2d2(standard view) bit-exactly
-    (the fold is a pure cell renumbering, not a recomputation), and the
-    occupancy is identical."""
-    pts = make_cloud(rng, 3000, SMALL)
-    padded, _ = voxelize.pad_points(pts, 8192)
-    batch = np.stack([padded, padded])
-    base = dataclasses.replace(SMALL, pipeline=dataclasses.replace(
-        SMALL.pipeline, use_pallas_fused=True))
-    fold = dataclasses.replace(SMALL, pipeline=dataclasses.replace(
-        SMALL.pipeline, use_pallas_fused=True, view_layout="s2d2"))
-    top_h, occ_h = voxelize.lidar_to_top_batch(batch, base, return_occ=True)
-    top_f, occ_f = voxelize.lidar_to_top_batch(batch, fold, return_occ=True)
-    t = SMALL.top
-    assert top_f.shape == (2, t.xn // 2, t.yn // 2, (t.zn + 2) * 4)
-    np.testing.assert_array_equal(
-        np.asarray(voxelize.fold_view_s2d2(top_h)), np.asarray(top_f))
-    assert occ_f.shape == (2, t.xn // 2, t.yn // 2, 4)   # folded occupancy
-    np.testing.assert_array_equal(
-        np.asarray(occ_h),
-        np.asarray(voxelize.unfold_occ4(occ_f, t.xn, t.yn)))
+    top, occ = voxelize.lidar_to_top(padded, SMALL, return_occ=True)
+    bases = anchor_ops.mv3d_car_bases()
+    feat = SMALL.top_feature_shape()
+    want = np.asarray(anchor_ops.non_empty_anchor_mask_structured(
+        top, bases, 8, feat, 0.0))
+    got = np.asarray(anchor_ops.non_empty_anchor_mask_structured(
+        top, bases, 8, feat, 0.0, occ=occ))
+    np.testing.assert_array_equal(got, want)
+    # occ zero-set == view channel-sum zero-set
+    view_sum = np.asarray(top).sum(-1)
+    np.testing.assert_array_equal(np.asarray(occ) > 0, view_sum > 0)
